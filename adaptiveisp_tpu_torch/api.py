@@ -6,8 +6,9 @@
     out = isp.process(images_nhwc)             # 5-step adaptive ISP
     det = api.load_detector()
     boxes, n = det.detect(out)
+    critic = api.load_value()                  # the actor-critic's critic
 
-Both loaders run on ``cuda`` unless the caller passes ``device="cpu"``, and
+The loaders run on ``cuda`` unless the caller passes ``device="cpu"``, and
 raise when CUDA is asked for and absent.
 """
 
@@ -33,6 +34,7 @@ from adaptiveisp_tpu_torch.eval.rollout import (
 )
 from adaptiveisp_tpu_torch.policy.agent import Agent
 from adaptiveisp_tpu_torch.policy.states import get_initial_states, get_noise
+from adaptiveisp_tpu_torch.policy.value import Value
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -135,12 +137,26 @@ def load_adaptive_isp(cfg: Config = DEFAULT_CONFIG, steps: int = 5,
 
 
 def load_detector(spec=None, seed: int = 0, device="cuda",
-                  state_dict: Optional[Mapping] = None) -> Detector:
+                  state_dict: Optional[Mapping] = None,
+                  dtype=None) -> Detector:
     """Detector (default YOLOv3) with seeded random weights or
-    ``state_dict`` (e.g. from ``convert.yolo_from_flax``), eval mode."""
+    ``state_dict`` (e.g. from ``convert.yolo_from_flax``), eval mode;
+    ``dtype`` (e.g. ``torch.bfloat16``) is the conv stack's autocast type,
+    the trainer's reward detector runs in bf16."""
     dev = resolve_device(device)
     spec = spec or YOLOV3_SPEC
-    model = _seeded(seed, lambda: DetectionModel(spec))
+    model = _seeded(seed, lambda: DetectionModel(spec, dtype=dtype))
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return Detector(model.to(dev).eval(), spec, dev)
+
+
+def load_value(cfg: Config = DEFAULT_CONFIG, seed: int = 0, device="cuda",
+               state_dict: Optional[Mapping] = None) -> Value:
+    """The critic with seeded random weights or ``state_dict`` (e.g. from
+    ``convert.value_from_flax``), in eval mode on ``device``."""
+    dev = resolve_device(device)
+    value = _seeded(seed, lambda: Value(cfg))
+    if state_dict is not None:
+        value.load_state_dict(state_dict)
+    return value.to(dev).eval()

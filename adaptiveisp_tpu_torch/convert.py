@@ -1,11 +1,12 @@
 """Carry weights across from the JAX package's flax trees to the port.
 
-``agent_from_flax`` and ``yolo_from_flax`` take flax ``params`` and
-``batch_stats`` trees (nested dicts of numpy arrays) and return a
-``state_dict`` for the port's ``policy.agent.Agent`` and
-``detect.model.DetectionModel``.  The port's keys are the original
-AdaptiveISP / ultralytics names, so ``adaptiveisp_tpu/detect/convert.py``
-(``convert_agent_state_dict``, ``convert_yolo_state_dict``) inverts these
+``agent_from_flax``, ``value_from_flax`` and ``yolo_from_flax`` take flax
+``params`` and ``batch_stats`` trees (nested dicts of numpy arrays) and
+return a ``state_dict`` for the port's ``policy.agent.Agent``,
+``policy.value.Value`` and ``detect.model.DetectionModel``.  The port's keys
+are the original AdaptiveISP / ultralytics names, so
+``adaptiveisp_tpu/detect/convert.py`` (``convert_agent_state_dict``,
+``convert_value_state_dict``, ``convert_yolo_state_dict``) inverts these
 exactly.
 
 Layout transforms (the inverse of that module's):
@@ -94,6 +95,21 @@ def agent_from_flax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
         for lin in ("fc_filter", "fc_mask"):
             sd[f"{sn}.{lin}.weight"] = _linear(head[lin]["kernel"])
             sd[f"{sn}.{lin}.bias"] = _t(head[lin]["bias"])
+    return sd
+
+
+def value_from_flax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
+    """flax Value variables -> state_dict of the port's ``Value``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _trunk(sd, "feature_extractor", params["feature_extractor"],
+           batch_stats["feature_extractor"])
+    head = params["head"]
+    sd["fc1.weight"] = trunk_linear(
+        head["Dense_0"]["kernel"],
+        cfg.feature_extractor_dims // MIN_FEATURE_MAP_SIZE ** 2)
+    sd["fc1.bias"] = _t(head["Dense_0"]["bias"])
+    sd["fc2.weight"] = _linear(head["Dense_1"]["kernel"])
+    sd["fc2.bias"] = _t(head["Dense_1"]["bias"])
     return sd
 
 

@@ -123,6 +123,17 @@ class DetectionModel(nn.Module):
         return outputs[-1]
 
 
+def frozen(model: DetectionModel) -> DetectionModel:
+    """The reward detector inside a differentiated graph: eval mode
+    (BatchNorm on its running statistics) and no parameter gradients, so
+    only the input image receives a gradient.  A ``dtype`` (bf16) runs
+    under autocast in the forward, and autograd replays the same types in
+    the backward."""
+    model.eval()
+    model.requires_grad_(False)
+    return model
+
+
 def model_strides(spec=None) -> Tuple[int, ...]:
     """Detection strides, traced statically through the layer spec."""
     spec = spec or YOLOV3_SPEC

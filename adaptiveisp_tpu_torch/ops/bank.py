@@ -18,7 +18,7 @@ import torch
 
 from adaptiveisp_tpu_torch.ops import filters as F
 from adaptiveisp_tpu_torch.ops import masks as M
-from adaptiveisp_tpu_torch.ops.math import lerp
+from adaptiveisp_tpu_torch.ops.math import clip, lerp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +105,7 @@ def apply_one(cfg, spec: FilterSpec, img, params, mask_params=None,
         filtered = spec.apply(cfg, img, params, gate=gate)
     else:
         filtered = spec.apply(cfg, img, params)
-    return torch.clamp(lerp(img, filtered, mask), 0.0, 1.0)
+    return clip(lerp(img, filtered, mask), 0.0, 1.0)
 
 
 def render_candidates(cfg, img, params_list: Sequence, mask_params_list=None):

@@ -27,9 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("nlm_fwd",)
+SOURCES = ("nlm_fwd", "nlm_bwd")
 
-LAUNCHES: Dict[str, int] = {"nlm_gray_fwd": 0}
+LAUNCHES: Dict[str, int] = {"nlm_gray_fwd": 0, "nlm_gray_bwd": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -19,6 +19,7 @@ import torch
 from adaptiveisp_tpu_torch.ops import denoise as _denoise
 from adaptiveisp_tpu_torch.ops import sharpen as _sharpen
 from adaptiveisp_tpu_torch.ops.math import (
+    clip,
     hsv2rgb,
     lerp,
     rgb2hsv,
@@ -49,7 +50,7 @@ def squash_gamma(cfg, feat):
 
 
 def apply_gamma(cfg, img, param):
-    return torch.pow(torch.clamp(img, min=0.001), param[:, None, None, :])
+    return torch.pow(clip(img, 0.001), param[:, None, None, :])
 
 
 # Improved white balance: channel gains, R pinned, luminance-normalised
@@ -77,7 +78,7 @@ def apply_color(cfg, img, param):
     curve_sum = param.sum(dim=1) + 1e-30  # [N, 3]
     total = torch.zeros_like(img)
     for i in range(steps):
-        seg = torch.clamp(img - i / steps, 0.0, 1.0 / steps)
+        seg = clip(img - i / steps, 0.0, 1.0 / steps)
         total = total + seg * param[:, i][:, None, None, :]
     return total * (steps / curve_sum)[:, None, None, :]
 
@@ -93,7 +94,7 @@ def apply_tone(cfg, img, param):
     curve_sum = param.sum(dim=1) + 1e-30  # [N]
     total = torch.zeros_like(img)
     for i in range(steps):
-        seg = torch.clamp(img - i / steps, 0.0, 1.0 / steps)
+        seg = clip(img - i / steps, 0.0, 1.0 / steps)
         total = total + seg * param[:, i][:, None, None, None]
     return total * (steps / curve_sum)[:, None, None, None]
 
@@ -115,7 +116,7 @@ def squash_contrast(cfg, feat):
 
 
 def apply_contrast(cfg, img, param):
-    lum = torch.clamp(rgb2lum(img), 0.0, 1.0)
+    lum = clip(rgb2lum(img), 0.0, 1.0)
     contrast_lum = -torch.cos(math.pi * lum) * 0.5 + 0.5
     contrast_img = img / (lum + 1e-6) * contrast_lum
     return lerp(img, contrast_img, param[:, None, None, :])
@@ -136,7 +137,7 @@ def squash_saturation_plus(cfg, feat):
 
 
 def apply_saturation_plus(cfg, img, param):
-    img = torch.clamp(img, 0.0, 1.0)
+    img = clip(img, 0.0, 1.0)
     hsv = rgb2hsv(img)
     s, v = hsv[..., 1:2], hsv[..., 2:3]
     enhanced_s = s + (1 - s) * (0.5 - torch.abs(0.5 - v)) * 0.8
@@ -152,7 +153,7 @@ def squash_denoise(cfg, feat):
 
 
 def apply_denoise(cfg, img, param, gate=None):
-    img = torch.clamp(img, 0.0, 1.0)
+    img = clip(img, 0.0, 1.0)
     return _denoise.nlm_gray_dispatch(img, param, gate=gate)
 
 

@@ -13,6 +13,37 @@ import torch
 import torch.nn.functional as F
 
 
+def clip_grad_mask(x, lo=None, hi=None):
+    """d clip(x, lo, hi) / dx with JAX's ties: 1 strictly inside the
+    bounds, 0.5 at an exact bound, 0 outside (``jnp.clip`` and
+    ``jnp.maximum`` split the gradient of a tie in half)."""
+    m = torch.ones_like(x)
+    if lo is not None:
+        m = torch.where(x < lo, 0.0, torch.where(x == lo, 0.5, m))
+    if hi is not None:
+        m = torch.where(x > hi, 0.0, torch.where(x == hi, 0.5 * m, m))
+    return m
+
+
+class _Clip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * clip_grad_mask(x, *ctx.bounds), None, None
+
+
+def clip(x, lo=None, hi=None):
+    """``torch.clamp`` values with ``jnp.clip`` gradients (see
+    :func:`clip_grad_mask`); ``clip(x, 0.0)`` is ``jnp.maximum(x, 0)``."""
+    return _Clip.apply(x, lo, hi)
+
+
 def lerp(a, b, l):
     return (1 - l) * a + l * b
 
@@ -44,7 +75,7 @@ def rgb2lum(img):
 def rgb_to_luminance(img):
     """BT.601 luminance of the clipped image, used by the NLM denoiser
     (NHWC -> NHW1)."""
-    img = torch.clamp(img, 0.0, 1.0)
+    img = clip(img, 0.0, 1.0)
     lum = 0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]
     return lum[..., None]
 
@@ -78,8 +109,8 @@ def rgb2hsv(img):
 def hsv2rgb(hsv):
     """HSV -> RGB over NHWC."""
     h = hsv[..., 0] % 1.0
-    s = torch.clamp(hsv[..., 1], 0.0, 1.0)
-    v = torch.clamp(hsv[..., 2], 0.0, 1.0)
+    s = clip(hsv[..., 1], 0.0, 1.0)
+    v = clip(hsv[..., 2], 0.0, 1.0)
 
     hi = torch.floor(h * 6.0)
     f = h * 6.0 - hi

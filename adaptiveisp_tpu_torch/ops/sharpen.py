@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adaptiveisp_tpu_torch.ops.math import clip as clip_range
 from adaptiveisp_tpu_torch.ops.math import depthwise_conv3x3
 
 _SHARPEN_KERNEL = np.array(
@@ -32,13 +33,13 @@ def adjust_sharpness(img, factor):
     """out = img * factor + blurred * (1 - factor), clipped to [0, 1];
     factor broadcastable to [N, 1, 1, 1]."""
     blurred = _blur_keep_border(img)
-    return torch.clamp(img * factor + blurred * (1.0 - factor), 0.0, 1.0)
+    return clip_range(img * factor + blurred * (1.0 - factor), 0.0, 1.0)
 
 
 def sharpness(img, factor):
     """out = img + (img - blurred) * factor, clipped to [0, 1]."""
     blurred = _blur_keep_border(img)
-    return torch.clamp(img + (img - blurred) * factor, 0.0, 1.0)
+    return clip_range(img + (img - blurred) * factor, 0.0, 1.0)
 
 
 def gaussian_kernel1d(kernel_size: int, sigma):
@@ -67,5 +68,5 @@ def unsharp_mask(img, sigma, amount, kernel_size: int = 5, clip: bool = True):
                                  * x[:, i:i + h, j:j + w, :])
     out = img + (img - blurred) * amount[:, None, None, None]
     if clip:
-        out = torch.clamp(out, 0.0, 1.0)
+        out = clip_range(out, 0.0, 1.0)
     return out

@@ -23,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from adaptiveisp_tpu_torch.ops import bank
-from adaptiveisp_tpu_torch.ops.math import adaptive_avg_pool
+from adaptiveisp_tpu_torch.ops.math import adaptive_avg_pool, clip
 from adaptiveisp_tpu_torch.policy.nets import (
     FeatureExtractor,
     FilterHead,
@@ -61,14 +61,17 @@ class Agent(nn.Module):
                 cfg.feature_extractor_dims, cfg.fc1_size, s.n_params))
 
     def forward(self, x, z, states, progress, train: bool = False,
-                selected_filter_id=None, render: str = "blend"):
+                selected_filter_id=None, render: str = "blend",
+                generator: torch.Generator | None = None):
         """Run one policy step.
 
         x [N, H, W, 3]; z [N, z_dim]; states [N, num_state_dim]; progress a
         scalar in [0, 1].  ``train`` picks sampled (True) or argmax (False)
         actions and must agree with the module's train()/eval() mode, which
-        drives BatchNorm and dropout.  ``selected_filter_id``: None, an int
-        or a scalar int tensor forcing the action for the whole batch; a
+        drives BatchNorm and dropout (``generator`` draws the dropout masks
+        of both trunks, flax's ``dropout`` rng; needed in train mode when
+        ``cfg.dropout_keep_prob < 1``).  ``selected_filter_id``: None, an
+        int or a scalar int tensor forcing the action for the whole batch; a
         negative value means the agent's own choice.
 
         Returns (out, new_states, surrogate, penalty, None, info); the fifth
@@ -85,7 +88,7 @@ class Agent(nn.Module):
             cfg, adaptive_avg_pool(x, self.feature_size), states)
 
         # ---- per-filter parameter regression ----
-        filter_features = self.feature_extractor(enriched)
+        filter_features = self.feature_extractor(enriched, generator)
         raw_params, mask_params, squashed = [], [], []
         for spec in self.specs:
             fp, mp = getattr(self, spec.short_name)(filter_features)
@@ -94,7 +97,8 @@ class Agent(nn.Module):
             squashed.append(spec.squash(cfg, fp))
 
         # ---- action selection ----
-        logits = mlp_head(self.action_selection(enriched), self.fc1, self.fc2)
+        logits = mlp_head(self.action_selection(enriched, generator),
+                          self.fc1, self.fc2)
         pdf = torch.softmax(logits, dim=-1) + 1e-37
         pdf = pdf * (1 - cfg.exploration) + cfg.exploration / n_filters
         pdf = pdf / (pdf.sum(dim=1, keepdim=True) + 1e-30)
@@ -146,9 +150,9 @@ class Agent(nn.Module):
                                            keepdim=True))
 
         if cfg.clamp:
-            out = torch.clamp(out, 0.0, 5.0)
+            out = clip(out, 0.0, 5.0)
 
-        overflow = torch.mean(torch.clamp(out - 1, min=0.0) ** 2,
+        overflow = torch.mean(clip(out - 1, 0.0) ** 2,
                               dim=(1, 2, 3))[:, None]
         penalty = (overflow + entropy_penalty
                    + usage_penalty * cfg.filter_usage_penalty

@@ -1,0 +1,196 @@
+"""The port's NLM backward against the JAX package.
+
+``nlm_gray_bwd_plain`` (the plain twin of the K2 kernel) is held against the
+Pallas backward ``_nlm_backward`` in interpret mode; the CPU autograd of
+``nlm_gray_dispatch``, and the wiring of ``NLMGray`` (clip and relu tie
+gradients, no gate gradient) with the plain versions standing in for the
+kernels, against ``jax.vjp`` of JAX's dispatch (the XLA chain) at an odd
+shape.  The ``cuda`` cases hold K2 against the plain twin on the
+card and run without JAX:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_nlm_bwd.py
+
+Tolerances: dL/drgb atol 2e-5 and dL/dhh rtol 2e-4, atol 1e-5, those of
+``tests/test_pallas_nlm.py`` for the Pallas backward against autodiff
+(float32 sums over 121 offsets in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from adaptiveisp_tpu_torch.ops import denoise as td
+from adaptiveisp_tpu_torch.ops.cuda import build
+from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
+from adaptiveisp_tpu_torch.ops.math import clip_grad_mask
+
+DRGB_ATOL = 2e-5
+DH_RTOL, DH_ATOL = 2e-4, 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the hand-written NLM kernels)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """(jax, jax.numpy, adaptiveisp_tpu.ops.denoise, ...pallas.nlm)."""
+    jax = pytest.importorskip("jax")
+    from adaptiveisp_tpu.ops import denoise
+    from adaptiveisp_tpu.ops.pallas import nlm
+
+    return jax, jax.numpy, denoise, nlm
+
+
+def _inputs(seed, n, h, w, hs):
+    """rgb a little outside [0, 1] with exact 0 and 1 pixels (the clip
+    ties), h [N, 1], and a seeded normal cotangent."""
+    rng = np.random.RandomState(seed)
+    rgb = rng.uniform(-0.05, 1.05, (n, h, w, 3)).astype(np.float32)
+    flat = rgb.reshape(-1)
+    ties = rng.choice(flat.size, flat.size // 10, replace=False)
+    flat[ties[::2]] = 0.0
+    flat[ties[1::2]] = 1.0
+    g = rng.randn(n, h, w, 3).astype(np.float32)
+    return rgb, np.asarray(hs, np.float32).reshape(n, 1), g
+
+
+def _jax_clip_vjp(jax, jnp, u, g):
+    _, vjp = jax.vjp(lambda x: jnp.clip(x, 0.0, 1.0), u)
+    return vjp(g)[0]
+
+
+def test_bwd_plain_matches_pallas_backward_gated(jx):
+    """H = 64 is two of the Pallas backward's 32-row tiles, so its
+    cross-tile gather runs; gate [1, 0, 0.3], the 0.3 image with h = 0."""
+    jax, jnp, _, jnlm = jx
+    rgb, h, g = _inputs(3, 3, 64, 64, [0.4, 0.2, 0.0])
+    gate = np.array([[1.0], [0.0], [0.3]], np.float32)
+    rgb_j, h_j, gate_j = jnp.asarray(rgb), jnp.asarray(h), jnp.asarray(gate)
+    u, wsum = jnlm._nlm_forward_uw(rgb_j, h_j, gate_j, interpret=True)
+    g[1] = 0.0   # the blend's cotangent of a gated-off image is zero
+    v = _jax_clip_vjp(jax, jnp, u, jnp.asarray(g))
+    dr_j, dh_j = jnlm._nlm_backward(rgb_j, h_j, gate_j, v, u, wsum,
+                                    interpret=True)
+    dr_t, dh_t = td.nlm_gray_bwd_plain(
+        torch.from_numpy(rgb), torch.from_numpy(h), torch.from_numpy(gate),
+        torch.from_numpy(np.asarray(v)))
+    np.testing.assert_allclose(dr_t.numpy(), np.asarray(dr_j),
+                               atol=DRGB_ATOL)
+    np.testing.assert_allclose(dh_t.numpy(), np.asarray(dh_j), rtol=DH_RTOL,
+                               atol=DH_ATOL)
+    assert not torch.any(dr_t[1]) and float(dh_t[1, 0]) == 0.0
+
+
+def _plain_kernels(monkeypatch):
+    """Stand the plain versions in for K1 and K2 inside ``ops.cuda.nlm``,
+    so ``NLMGray``'s own wiring runs on the CPU."""
+    def fwd(rgb, h, gate):
+        u, w = td.nlm_gray_uw(rgb, h)
+        on = (gate != 0).reshape(-1, 1, 1, 1)
+        return torch.where(on, u, 0.0), torch.where(on, w, 0.0)
+
+    monkeypatch.setattr(cnlm, "nlm_gray_fwd", fwd)
+    monkeypatch.setattr(cnlm, "nlm_gray_bwd", td.nlm_gray_bwd_plain)
+
+
+@pytest.fixture(scope="module")
+def xla_ref(jx):
+    """jax.vjp of JAX's ``nlm_gray_dispatch`` (the XLA chain with the gate
+    mask on the CPU) at an odd shape: gate [0, 1, 0.7], the 0.7 image with
+    h = 0.  Built once: an eager vjp of the 121-offset chain takes about a
+    minute here."""
+    jax, jnp, jd, _ = jx
+    rgb, h, g = _inputs(5, 3, 37, 53, [0.3, 0.6, 0.0])
+    gate = np.array([0.0, 1.0, 0.7], np.float32)
+    _, vjp = jax.vjp(lambda r, hh: jd.nlm_gray_dispatch(
+        r, hh, gate=jnp.asarray(gate)), jnp.asarray(rgb), jnp.asarray(h))
+    dr, dh = vjp(jnp.asarray(g))
+    return rgb, h, gate, g, np.asarray(dr), np.asarray(dh)
+
+
+def test_nlmgray_wiring_matches_jax_vjp_odd_shape(xla_ref, monkeypatch):
+    """``NLMGray`` (clip(U) forward; backward: clip tie mask on U, K2, relu
+    tie mask on h, no gate gradient) with the plain versions standing in
+    for K1 and K2, against ``jax.vjp`` at an odd shape."""
+    rgb, h, gate, g, dr_j, dh_j = xla_ref
+    _plain_kernels(monkeypatch)
+    x = torch.from_numpy(rgb).requires_grad_(True)
+    ht = torch.from_numpy(h).requires_grad_(True)
+    gt = torch.from_numpy(gate[:, None]).requires_grad_(True)
+    out = cnlm.NLMGray.apply(x, ht, gt)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(x.grad.numpy(), dr_j, atol=DRGB_ATOL)
+    np.testing.assert_allclose(ht.grad.numpy(), dh_j, rtol=DH_RTOL,
+                               atol=DH_ATOL)
+    assert gt.grad is None
+    assert not torch.any(x.grad[0]) and float(ht.grad[0, 0]) == 0.0
+
+
+def test_dispatch_cpu_autograd_matches_jax_grad_with_gate(xla_ref):
+    rgb, h, gate, g, dr_j, dh_j = xla_ref
+    x = torch.from_numpy(rgb).requires_grad_(True)
+    ht = torch.from_numpy(h).requires_grad_(True)
+    before = dict(build.LAUNCHES)
+    td.nlm_gray_dispatch(x, ht, gate=torch.from_numpy(gate)).backward(
+        torch.from_numpy(g))
+    assert build.LAUNCHES == before   # the CPU path launches nothing
+    np.testing.assert_allclose(x.grad.numpy(), dr_j, atol=DRGB_ATOL)
+    np.testing.assert_allclose(ht.grad.numpy(), dh_j, rtol=DH_RTOL,
+                               atol=DH_ATOL)
+    assert not torch.any(x.grad[0]) and float(ht.grad[0, 0]) == 0.0
+
+
+def test_bwd_wrapper_raises_on_cpu_tensor():
+    rgb, h, g = _inputs(0, 2, 8, 8, [0.3, 0.3])
+    t = torch.from_numpy
+    gate = torch.ones((2, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        cnlm.nlm_gray_bwd(t(rgb), t(h), gate, t(g), t(rgb),
+                          torch.ones((2, 8, 8, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512, 512), (2, 37, 53)])
+def test_kernel_bwd_matches_plain_on_card(cuda_device, shape):
+    n = shape[0]
+    rgb, _, g = _inputs(11, *shape, [0.0] * n)
+    rng = np.random.RandomState(12)
+    h = rng.uniform(0.02, 1.0, (n, 1)).astype(np.float32)
+    h[0] = 0.0   # a gated-on image with zero strength
+    gate = np.array([1, 0, 0.3, 1, 0, 1, 1, 0][:n], np.float32)[:, None]
+    rgb_d, h_d, gate_d = (torch.from_numpy(a).to(cuda_device)
+                          for a in (rgb, h, gate))
+    u, w = cnlm.nlm_gray_fwd(rgb_d, h_d, gate_d)
+    on = (gate_d != 0).reshape(n, 1, 1, 1)
+    v = torch.where(on, torch.from_numpy(g).to(cuda_device), 0.0) \
+        * clip_grad_mask(u, 0.0, 1.0)
+    dr, dhh = cnlm.nlm_gray_bwd(rgb_d, h_d, gate_d, v.contiguous(), u, w)
+    torch.cuda.synchronize()
+    dr_p, dhh_p = td.nlm_gray_bwd_plain(rgb_d, h_d, gate_d, v)
+    torch.testing.assert_close(dr, dr_p, rtol=0, atol=DRGB_ATOL)
+    torch.testing.assert_close(dhh, dhh_p, rtol=DH_RTOL, atol=DH_ATOL)
+    off = ~on.reshape(n)
+    assert not torch.any(dr[off]) and not torch.any(dhh[off])
+
+
+@pytest.mark.cuda
+def test_nlmgray_backward_launches_k2_on_card(cuda_device):
+    rgb, h, g = _inputs(13, 2, 64, 96, [0.3, 0.0])
+    gate = torch.tensor([[1.0], [1.0]], device=cuda_device)
+    x = torch.from_numpy(rgb).to(cuda_device).requires_grad_(True)
+    ht = torch.from_numpy(h).to(cuda_device).requires_grad_(True)
+    out = td.nlm_gray_dispatch(x, ht, gate=gate)
+    assert out.grad_fn is not None
+    before = build.LAUNCHES["nlm_gray_bwd"]
+    out.backward(torch.from_numpy(g).to(cuda_device))
+    assert build.LAUNCHES["nlm_gray_bwd"] == before + 1
+    xp = torch.from_numpy(rgb).to(cuda_device).requires_grad_(True)
+    hp = torch.from_numpy(h).to(cuda_device).requires_grad_(True)
+    td.nlm_gray(xp, hp).backward(torch.from_numpy(g).to(cuda_device))
+    torch.testing.assert_close(x.grad, xp.grad, rtol=0, atol=DRGB_ATOL)
+    torch.testing.assert_close(ht.grad, hp.grad, rtol=DH_RTOL, atol=DH_ATOL)
