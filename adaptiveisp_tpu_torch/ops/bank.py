@@ -6,7 +6,9 @@
     op (NLM denoise) gets its one-hot column as a per-image gate, so only the
     images that selected it pay for the kernel.
   * ``render_switch``     — renders only the filter the whole batch shares.
-  * ``render_fixed`` / ``render_pipeline`` — fixed-parameter renders.
+  * ``render_fixed`` / ``render_pipeline`` — fixed-parameter renders; on
+    the card ``render_pipeline`` runs each maximal run of fusable stages as
+    one pass of the K4 kernel (``ops/cuda/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -147,9 +149,50 @@ def render_fixed(cfg, img, name: str, params):
     return lerp(img, spec.apply(cfg, img, params), mask)
 
 
-def render_pipeline(cfg, img, stages: Sequence[Tuple[str, torch.Tensor]]):
-    """Sequential scripted pipeline of (filter_name, params) stages, stage by
-    stage (the fused one-pass branch is not ported yet)."""
-    for name, params in stages:
-        img = render_fixed(cfg, img, name, params)
+def fusable_runs(stages: Sequence[Tuple[str, torch.Tensor]]):
+    """The launches of ``render_pipeline`` on the card: ``(True, run)`` for
+    each maximal run of fusable stages that one K4 pass takes (a run at the
+    kernel's stage or sharpen limit starts a new one), ``(False, [stage])``
+    for each other stage."""
+    from adaptiveisp_tpu_torch.ops.cuda.pipeline import FUSABLE, fits
+
+    out, run = [], []
+    for stage in stages:
+        if stage[0] in FUSABLE and fits([s[0] for s in run] + [stage[0]]):
+            run.append(stage)
+            continue
+        if run:
+            out.append((True, run))
+            run = []
+        if stage[0] in FUSABLE:
+            run = [stage]
+        else:
+            out.append((False, [stage]))
+    if run:
+        out.append((True, run))
+    return out
+
+
+def render_pipeline(cfg, img, stages: Sequence[Tuple[str, torch.Tensor]],
+                    allow_fused: bool = True):
+    """Sequential scripted pipeline of (filter_name, params) stages.
+
+    For a CUDA tensor (with masking off) each run of :func:`fusable_runs`
+    is one launch of the K4 kernel, one device-memory read and write for
+    the whole run; ``denoise`` (K1 through
+    ``nlm_gray_dispatch``), ``tone_v2`` and ``sharpen_usm`` run on their
+    own.  Gradients go through the stage-by-stage chain (``fused_run``).
+    On the CPU, or with ``allow_fused=False``, the chain runs stage by
+    stage.
+    """
+    if not (allow_fused and not cfg.masking and img.is_cuda):
+        for name, params in stages:
+            img = render_fixed(cfg, img, name, params)
+        return img
+
+    from adaptiveisp_tpu_torch.ops.cuda.pipeline import fused_run
+
+    for fused, group in fusable_runs(stages):
+        img = (fused_run(cfg, img, group) if fused
+               else render_fixed(cfg, img, *group[0]))
     return img

@@ -21,15 +21,19 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("nlm_fwd", "nlm_bwd")
+# per-source additions: the render pass rounds every multiply and add on its
+# own, as the plain chain's separate tensor operations do
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"pipeline_fwd": ("-fmad=false",)}
+SOURCES = ("nlm_fwd", "nlm_bwd", "pipeline_fwd", "nlm_fwd_sym")
 
-LAUNCHES: Dict[str, int] = {"nlm_gray_fwd": 0, "nlm_gray_bwd": 0}
+LAUNCHES: Dict[str, int] = {"nlm_gray_fwd": 0, "nlm_gray_bwd": 0,
+                            "pipeline_fwd": 0, "nlm_gray_fwd_sym": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -50,9 +54,13 @@ def nvcc_path() -> str:
                        "toolkit (nvcc on PATH or under $CUDA_HOME/bin)")
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -69,7 +77,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)

@@ -1,8 +1,12 @@
-"""Gated gray NLM on the GPU: wrappers of ``csrc/nlm_fwd.cu`` (K1) and
-``csrc/nlm_bwd.cu`` (K2), and the autograd function around them.
+"""Gated gray NLM on the GPU: wrappers of ``csrc/nlm_fwd.cu`` (K1),
+``csrc/nlm_fwd_sym.cu`` (K3) and ``csrc/nlm_bwd.cu`` (K2), and the autograd
+function around them.
 
 K1 replaces the TPU kernel ``adaptiveisp_tpu/ops/pallas/nlm.py::_nlm_kernel``,
-K2 its fused adjoint ``_nlm_bwd_kernel``.  The plain PyTorch twins are
+K3 its symmetry-halved variant ``_nlm_kernel_sym`` (the same function, 60
+computed offsets plus the centre), K2 their fused adjoint
+``_nlm_bwd_kernel``.  K3 is selected by ``sym=True`` only, as in the JAX
+package, whose entry points keep K1.  The plain PyTorch twins are
 :func:`adaptiveisp_tpu_torch.ops.denoise.nlm_gray_uw` and
 :func:`adaptiveisp_tpu_torch.ops.denoise.nlm_gray_bwd_plain`;
 ``ops.denoise.nlm_gray_dispatch`` routes CPU tensors to the plain forward
@@ -21,11 +25,13 @@ from adaptiveisp_tpu_torch.ops.cuda import build
 from adaptiveisp_tpu_torch.ops.math import clip_grad_mask
 
 NAME = "nlm_gray_fwd"
+SYM_NAME = "nlm_gray_fwd_sym"
 BWD_NAME = "nlm_gray_bwd"
 
 
-def _fwd_entry():
-    fn = build.load("nlm_fwd").nlm_gray_fwd
+def _fwd_entry(sym: bool):
+    fn = (build.load("nlm_fwd_sym").nlm_gray_fwd_sym if sym
+          else build.load("nlm_fwd").nlm_gray_fwd)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
@@ -78,22 +84,23 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def nlm_gray_fwd(rgb, h, gate):
-    """Launch K1: rgb [N, H, W, 3], h [N, 1], gate [N, 1], all float32,
-    contiguous, on one CUDA device.  Returns (U [N, H, W, 3] unclipped,
-    W [N, H, W, 1]).  Launches even when every gate is 0, since skipping
-    would need the gates on the host."""
+def nlm_gray_fwd(rgb, h, gate, sym: bool = False):
+    """Launch K1, or K3 with ``sym=True``: rgb [N, H, W, 3], h [N, 1],
+    gate [N, 1], all float32, contiguous, on one CUDA device.  Returns
+    (U [N, H, W, 3] unclipped, W [N, H, W, 1]).  Launches even when every
+    gate is 0, since skipping would need the gates on the host."""
     n, height, width = _check_images(rgb, h, gate)
+    name = SYM_NAME if sym else NAME
     u = torch.empty_like(rgb)
     wsum = torch.empty((n, height, width, 1), dtype=torch.float32,
                        device=rgb.device)
     with torch.cuda.device(rgb.device):
-        rc = _fwd_entry()(rgb.data_ptr(), h.data_ptr(), gate.data_ptr(),
-                          u.data_ptr(), wsum.data_ptr(), n, height, width,
-                          _stream(rgb.device))
+        rc = _fwd_entry(sym)(rgb.data_ptr(), h.data_ptr(), gate.data_ptr(),
+                             u.data_ptr(), wsum.data_ptr(), n, height, width,
+                             _stream(rgb.device))
     if rc != 0:
-        raise RuntimeError(f"{NAME} launch failed: cudaError {rc}")
-    build.LAUNCHES[NAME] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    build.LAUNCHES[name] += 1
     return u, wsum
 
 
@@ -123,14 +130,14 @@ def nlm_gray_bwd(rgb, h, gate, v, u, wsum):
 
 
 class NLMGray(torch.autograd.Function):
-    """clip(U, 0, 1) of K1, differentiated by K2 (the JAX package's
-    ``custom_vjp`` at ``ops/pallas/nlm.py:248-264``): the clip and the
-    h-relu take JAX's tie gradients (0.5 at an exact bound); the gate gets
-    no gradient."""
+    """clip(U, 0, 1) of K1 (K3 with ``sym=True``), differentiated by K2 in
+    both cases (the JAX package's ``custom_vjp`` pair at
+    ``ops/pallas/nlm.py:248-264``): the clip and the h-relu take JAX's tie
+    gradients (0.5 at an exact bound); the gate gets no gradient."""
 
     @staticmethod
-    def forward(ctx, rgb, h, gate):
-        u, wsum = nlm_gray_fwd(rgb, h, gate)
+    def forward(ctx, rgb, h, gate, sym=False):
+        u, wsum = nlm_gray_fwd(rgb, h, gate, sym=sym)
         ctx.save_for_backward(rgb, h, gate, u, wsum)
         return torch.clamp(u, 0.0, 1.0)
 
@@ -139,4 +146,4 @@ class NLMGray(torch.autograd.Function):
         rgb, h, gate, u, wsum = ctx.saved_tensors
         v = (g * clip_grad_mask(u, 0.0, 1.0)).contiguous()
         drgb, dhh = nlm_gray_bwd(rgb, h, gate, v, u, wsum)
-        return drgb, dhh * clip_grad_mask(h, 0.0), None
+        return drgb, dhh * clip_grad_mask(h, 0.0), None, None

@@ -10,7 +10,14 @@ Phases, each printing one JSON line:
      cuda/csrc`` (one nvcc per source, all started together);
   3. kernel: each kernel against its plain PyTorch version on the card, at
      the main path's shape and at an odd shape, with its time, the plain
-     version's time and the card's bound for the same work;
+     version's time and the card's bound for the same work: K1 and K2; K4
+     (the fused render pass) on the bench's 5-stage chain at [8,512,512,3]
+     with per-image parameters, a pointwise stack on exact 0/1, out-of-range,
+     grey and two-channel-tie pixels, and four sharpens interleaved with
+     pointwise stages at [2,37,53,3] and [1,2160,3840,3]; K3 (the symmetric
+     NLM forward) against the plain version and K1, timed in turns with K1,
+     then ``NLMGray(sym=True)`` forward and backward once (K3, then K2; the
+     launch counts of this run are the ``kernel`` path);
   4. serving: the port's serving path at full width, through the user entry
      points: ``api.load_adaptive_isp().process`` (Config() defaults, 5-step
      blend rollout) then ``api.load_detector().detect`` (full YOLOv3, decode,
@@ -23,7 +30,17 @@ Phases, each printing one JSON line:
      counts read around the 10 timed steps of each (K1 in the forward, K2 in
      the backward, once per step); one f32 step at batch 2 @ 128 px held
      against the port's own CPU run;
-then the kernels line, the card's name and power limit, and as the last line
+  6. render: the scripted render through its entry point,
+     ``render_isp.main`` at ``--batch 8`` on 8 seeded 512 x 512 PNGs (under
+     ``build/render_smoke``) with a chain split by denoise; launch counts
+     read around that run (exactly 2 K4 and 1 K1); every saved PNG against
+     the port's CPU chain; then ``render_pipeline`` timed for the bench's
+     5-stage chain at batch 8 @ 512 and 2 x 2160 x 3840 and the split chain
+     at batch 8 @ 512, MPix/s beside the eager chain's;
+  7. fused_grad: one ``fused_run`` gradient at batch 2 @ 128 px (image and
+     every stage's parameters) against autograd of the plain chain;
+then the kernels line (each kernel's launches by path: serving, train_bf16,
+train_f32, render, kernel), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 without a CUDA device or when any phase fails.
 """
@@ -46,6 +63,7 @@ FP32_OPS_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 SERVE_BATCH, SERVE_SIZE, STEPS = 8, 512, 5
+UHD = (2160, 3840)   # the render phase's large frame
 FORCED = [4, -1, -1, -1, -1]   # step 0 = denoise for every image
 REPS = 5
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
@@ -54,6 +72,14 @@ MAIN_GATE = np.array([1, 0, 0.3, 1, 0, 1, 1, 0], np.float32)
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def only(**counts):
+    """The launch counts of a run that launched these kernels this often
+    and no other kernel."""
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    return {k: counts.get(k, 0) for k in build.LAUNCHES}
 
 
 def cuda_time_ms(fn, reps: int):
@@ -119,29 +145,31 @@ def bound(nbytes: int, ops: int, sfu_ops: int):
 
 
 def nlm_bound(n_on: int, n: int, h: int, w: int):
-    """The gated NLM forward for these inputs: each input read once, each
-    output written once; per gated-on pixel and offset the least arithmetic
-    is 2 (difference, square) + 8 (separable 5x5 box sum) + 3 (sqrt,
-    divide, exp) + 7 (weight sum and three multiply-adds) = 20 operations,
-    3 of them on the special-function units."""
+    """The gated NLM forward (K1 and K3 compute the same function) for these
+    inputs: each input read once, each output written once.  The weight of
+    offset -d at p is that of d at p - d, so per gated-on pixel the least
+    arithmetic is 60 weights of 13 operations (difference, square,
+    separable 5x5 box sum, sqrt, divide, exp; 3 of them on the
+    special-function units) and 121 terms of 7 (weight sum and three
+    multiply-adds)."""
     px_on, px = n_on * h * w, n * h * w
-    return bound(px_on * 12 + px * 16 + n * 8, px_on * 121 * 20,
-                 px_on * 121 * 3)
+    return bound(px_on * 12 + px * 16 + n * 8, px_on * (60 * 13 + 121 * 7),
+                 px_on * 60 * 3)
 
 
 def nlm_bwd_bound(n_on: int, n: int, h: int, w: int):
     """The gated NLM backward for these inputs: rgb, v and U (12 bytes a
     pixel each) and W (4) read once for the gated-on images, dL/drgb (12)
-    written for every image.  Per gated-on pixel and offset the least
-    arithmetic is 10 (difference, square, separable 5x5 box sum) + 3 (sqrt,
-    divide by hh, exp) + 6 (g_w: three multiply-adds) + 1 (g_w w) + 2
-    (strength term and its sum) + 3 (db: two multiplies, a divide) + 8 (box
-    sum of db) + 3 (z = 2 diff dd2) + 2 (z(p) - z(p + d) into dL/dy) + 6
-    (three direct multiply-adds) = 44 operations, 4 of them (sqrt, exp, two
-    divisions) on the special-function units."""
+    written for every image.  Per gated-on pixel the least arithmetic is the
+    forward's 60 weights of 13 operations (3 on the special-function units;
+    the weight of -d at p is that of d at p - d) and, per offset, 6 (g_w:
+    three multiply-adds) + 1 (g_w w) + 2 (strength term and its sum) + 3
+    (db: two multiplies, a divide) + 8 (box sum of db) + 3 (z = 2 diff dd2)
+    + 2 (z(p) - z(p + d) into dL/dy) + 6 (three direct multiply-adds) = 31
+    operations, 1 (the divide) on the special-function units."""
     px_on, px = n_on * h * w, n * h * w
     return bound(px_on * (12 * 3 + 4) + px * 12 + n * 12,
-                 px_on * 121 * 44, px_on * 121 * 4)
+                 px_on * (60 * 13 + 121 * 31), px_on * (60 * 3 + 121))
 
 
 def _nlm_inputs(rng, n, hgt, wid, dev):
@@ -260,6 +288,391 @@ def phase_kernel():
                                  f"version ({name})")
         result[name] = rec
     return result
+
+
+# stage -> least FP32 operations per pixel (all three channels) and the
+# special-function-unit share of them, for the K4 bound
+STAGE_OPS = {
+    "exposure": (3, 0), "improved_wb": (3, 0), "ccm": (15, 0),
+    "gamma": (12, 6),          # max, log, multiply, exp per channel
+    "tone": (123, 0),          # 8 x (subtract, clip 2, multiply-add 2) + 1
+    "color": (123, 0),
+    "contrast": (30, 4),       # luminance, clip, cos, 3 divides, 3 lerps
+    "wnb": (14, 0),
+    "saturation_plus": (60, 4),
+    "sharpen": (66, 0),        # 3 x (9 multiply-adds, mix, clip)
+    "sharpen_v2": (66, 0),
+}
+PIPE_REPS = 50
+
+
+def pipeline_bound(names, n: int, h: int, w: int, n_params: int):
+    """K4 for these inputs: the image read once and written once (24 bytes
+    a pixel) and the parameter table read once; per pixel the least
+    arithmetic of each stage (STAGE_OPS)."""
+    px = n * h * w
+    ops = sum(STAGE_OPS[nm][0] for nm in names)
+    sfu = sum(STAGE_OPS[nm][1] for nm in names)
+    return bound(px * 24 + n * n_params * 4, px * ops, px * sfu)
+
+
+def _stages_5(n, rng):
+    """The JAX bench's 5-stage render (``bench.py:170-178``), each image's
+    parameters drawn within 20 % of the bench's."""
+    base = [("exposure", [1.2]), ("improved_wb", [2.40, 1.22, 1.88]),
+            ("ccm", list((np.eye(3) * 1.2).reshape(9))), ("gamma", [0.45]),
+            ("sharpen", [3.0])]
+    return [(nm, (np.asarray(p, np.float32)[None]
+                  * rng.uniform(0.8, 1.2, (n, len(p)))).astype(np.float32))
+            for nm, p in base]
+
+
+def _pointwise_stack(n, rng):
+    return [(nm, np.asarray(p, np.float32)) for nm, p in (
+        ("tone", rng.uniform(0.5, 2.0, (n, 8))),
+        ("color", rng.uniform(0.9, 1.1, (n, 8, 3))),
+        ("contrast", rng.uniform(0.2, 0.6, (n, 1))),
+        ("wnb", rng.uniform(0.1, 0.4, (n, 1))),
+        ("saturation_plus", rng.uniform(0.3, 0.8, (n, 1))),
+        ("improved_wb", rng.uniform(0.8, 1.2, (n, 3))),
+        ("gamma", rng.uniform(0.6, 1.4, (n, 1))),
+        ("exposure", rng.uniform(-0.5, 0.5, (n, 1))),
+        ("ccm", np.eye(3).reshape(1, 9) + rng.uniform(-0.1, 0.1, (n, 9))))]
+
+
+def _sharpen4(n, rng):
+    """Four sharpen / sharpen_v2 stages interleaved with pointwise ones."""
+    return [(nm, (np.asarray(p, np.float32)[None]
+                  * rng.uniform(0.9, 1.1, (n, len(p)))).astype(np.float32))
+            for nm, p in (("exposure", [0.3]), ("sharpen", [1.5]),
+                          ("wnb", [0.3]), ("sharpen_v2", [0.6]),
+                          ("gamma", [0.8]), ("sharpen", [0.7]),
+                          ("contrast", [0.4]), ("sharpen_v2", [0.3]),
+                          ("improved_wb", [1.1, 0.9, 1.0]))]
+
+
+def _special_pixels(rng, n, h, w):
+    """Values below 0 and above 1 with bands of exact 0, exact 1, grey
+    (max == min) and two-channel ties (r == g, g == b, b == r)."""
+    img = rng.uniform(-0.2, 1.2, (n, h, w, 3)).astype(np.float32)
+    band = h // 8
+    img[:, :band] = 0.0
+    img[:, band:2 * band] = 1.0
+    img[:, 2 * band:3 * band] = rng.rand(n, band, w, 1)
+    for k, (a, b) in enumerate(((0, 1), (1, 2), (2, 0))):
+        rows = slice((3 + k) * band, (4 + k) * band)
+        img[:, rows, :, b] = img[:, rows, :, a]
+    return img
+
+
+def phase_kernel_pipeline():
+    """K4 against its plain version (``render_pipeline(...,
+    allow_fused=False)``) on the card."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.ops.bank import render_pipeline
+    from adaptiveisp_tpu_torch.ops.cuda.pipeline import (
+        pack_params,
+        render_pipeline_fused,
+    )
+
+    cfg = Config()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(30)
+    cases = {
+        "main": (rng.rand(SERVE_BATCH, SERVE_SIZE, SERVE_SIZE, 3).astype(
+            np.float32), _stages_5(SERVE_BATCH, rng)),
+        "pointwise_special": (_special_pixels(rng, 2, 256, 384),
+                              _pointwise_stack(2, rng)),
+        "sharpen4_odd": (rng.uniform(-0.1, 1.1, (2, 37, 53, 3)).astype(
+            np.float32), _sharpen4(2, rng)),
+        "sharpen4_4k": (rng.rand(1, *UHD, 3).astype(np.float32),
+                        _sharpen4(1, rng)),
+    }
+    result = {}
+    for name, (img_np, stages_np) in cases.items():
+        img = torch.from_numpy(img_np).to(dev)
+        stages = [(nm, torch.from_numpy(p).to(dev)) for nm, p in stages_np]
+        got = render_pipeline_fused(cfg, img, stages)
+        torch.cuda.synchronize()
+        want = render_pipeline(cfg, img, stages, allow_fused=False)
+        diff = (got - want).abs()
+        over = int((diff > 2e-5 + 2e-4 * want.abs()).sum())
+        ok = over == 0 and bool(torch.isfinite(got).all())
+        names = [nm for nm, _ in stages]
+        rec = {"phase": "kernel", "kernel": "pipeline_fwd", "case": name,
+               "shape": list(img.shape), "stages": names,
+               "max_abs_err": float(diff.max()),
+               "max_rel_err": float((diff / want.abs().clamp_min(1e-6))
+                                    .max()),
+               "outside_tolerance": over,
+               "tolerance": {"rtol": 2e-4, "atol": 2e-5}, "ok": ok}
+        if name in ("main", "sharpen4_4k"):
+            rec["ms"] = cuda_time_ms(
+                lambda: render_pipeline_fused(cfg, img, stages), PIPE_REPS)
+            rec["plain_ms"] = cuda_time_ms(
+                lambda: render_pipeline(cfg, img, stages, allow_fused=False),
+                20)
+            n, h, w, _ = img.shape
+            rec.update(pipeline_bound(names, n, h, w,
+                                      pack_params(cfg, img, stages).shape[1]))
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"render kernel disagrees with its plain "
+                                 f"version ({name})")
+        result[name] = rec
+    return result
+
+
+def phase_kernel_sym():
+    """K3 against its plain version (``nlm_gray_uw``) and against K1 on the
+    card; K3 and K1 timed in turns (K1, K3, K3, K1).  Then the K3 path:
+    ``NLMGray`` with ``sym=True`` forward and backward once (K3, then K2),
+    launch counts read around it, against autograd of the plain chain."""
+    import torch
+
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.ops.cuda.nlm import NLMGray, nlm_gray_fwd
+    from adaptiveisp_tpu_torch.ops.denoise import nlm_gray, nlm_gray_uw
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(40)
+    cases = {"main": (MAIN_GATE, (SERVE_BATCH, SERVE_SIZE, SERVE_SIZE)),
+             "odd": (np.array([1, 0], np.float32), (2, 37, 53))}
+    result = {}
+    for name, (gate_np, (n, hgt, wid)) in cases.items():
+        rgb, h = _nlm_inputs(rng, n, hgt, wid, dev)
+        gate = torch.from_numpy(gate_np[:, None]).to(dev)
+        u3, w3 = nlm_gray_fwd(rgb, h, gate, sym=True)
+        u1, w1 = nlm_gray_fwd(rgb, h, gate)
+        torch.cuda.synchronize()
+        u_p, w_p = nlm_gray_uw(rgb, h)
+        on = (gate != 0).reshape(n, 1, 1, 1)
+        u_p, w_p = torch.where(on, u_p, 0.0), torch.where(on, w_p, 0.0)
+        err_u = float((u3 - u_p).abs().max())
+        err_k1 = float((u3 - u1).abs().max())
+        rel_w = float(((w3 - w_p).abs() / w_p.abs().clamp_min(1e-30))
+                      [on.expand_as(w3)].max())
+        rel_w_k1 = float(((w3 - w1).abs() / w1.abs().clamp_min(1e-30))
+                         [on.expand_as(w3)].max())
+        off = ~on.reshape(n)
+        off_zero = bool(not torch.any(u3[off]) and not torch.any(w3[off]))
+        ok = (err_u <= 2e-5 and err_k1 <= 5e-6 and rel_w <= 1e-5
+              and off_zero)
+        rec = {"phase": "kernel", "kernel": "nlm_gray_fwd_sym", "case": name,
+               "shape": [n, hgt, wid, 3], "gate": gate_np.tolist(),
+               "max_abs_err_u": err_u, "max_abs_err_u_vs_k1": err_k1,
+               "max_rel_err_w": rel_w, "max_rel_err_w_vs_k1": rel_w_k1,
+               "gated_off_exact_zero": off_zero,
+               "tolerance": {"u_atol": 2e-5, "u_vs_k1_atol": 5e-6,
+                             "w_rtol": 1e-5}, "ok": ok}
+        if name == "main":
+            k1a = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate), 50)
+            k3a = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate, sym=True),
+                               50)
+            k3b = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate, sym=True),
+                               50)
+            k1b = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate), 50)
+            rec.update({"ms": float(np.median([k3a, k3b])),
+                        "ms_turns": {"k1": [k1a, k1b], "k3": [k3a, k3b]},
+                        "k1_ms": float(np.median([k1a, k1b])),
+                        "plain_ms": cuda_time_ms(
+                            lambda: nlm_gray_uw(rgb, h), 5)})
+            rec.update(nlm_bound(int((gate_np != 0).sum()), n, hgt, wid))
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"symmetric nlm kernel disagrees ({name})")
+        result[name] = rec
+
+    # the K3 path: NLMGray(sym=True), forward and backward
+    rgb, h = _nlm_inputs(rng, 2, 64, 96, dev)
+    g = torch.from_numpy(rng.randn(2, 64, 96, 3).astype(np.float32)).to(dev)
+    gate = torch.ones((2, 1), device=dev)
+    x = rgb.clone().requires_grad_(True)
+    hk = h.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = NLMGray.apply(x, hk, gate, True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    xp = rgb.clone().requires_grad_(True)
+    hp = h.clone().requires_grad_(True)
+    out_p = nlm_gray(xp, hp)
+    out_p.backward(g)
+    err_out = float((out - out_p).detach().abs().max())
+    err_dr = float((x.grad - xp.grad).abs().max())
+    dh_ok = bool(torch.all((hk.grad - hp.grad).abs()
+                           <= 1e-5 + 2e-4 * hp.grad.abs()))
+    ok = (launches == only(nlm_gray_fwd_sym=1, nlm_gray_bwd=1)
+          and err_out <= 2e-5 and err_dr <= 2e-5 and dh_ok)
+    emit({"phase": "kernel_sym_path", "shape": [2, 64, 96, 3],
+          "launches": launches, "max_abs_err_out": err_out,
+          "max_abs_err_drgb": err_dr, "dh": hk.grad.flatten().tolist(),
+          "dh_plain": hp.grad.flatten().tolist(),
+          "tolerance": {"out_atol": 2e-5, "drgb_atol": 2e-5,
+                        "dh_rtol": 2e-4, "dh_atol": 1e-5}, "ok": ok})
+    if not ok:
+        raise AssertionError("NLMGray(sym=True) disagrees with the plain "
+                             "chain or launched the wrong kernels")
+    return result, launches
+
+
+RENDER_SCRIPT = [("exposure", [0.35]), ("improved_wb", [1.05, 0.95, 1.02]),
+                 ("denoise", [0.25]), ("gamma", [0.9]), ("sharpen", [1.6]),
+                 ("saturation_plus", [0.6])]
+RENDER_REPS = 20
+
+
+def phase_render():
+    """The scripted render through its entry point: ``render_isp.main`` on
+    8 seeded 512 x 512 PNGs at ``--batch 8`` with a chain split by denoise
+    (two fusable runs: K4 twice, K1 once); every saved PNG against the
+    port's CPU chain of the same frame; launch counts read around the run.
+    Then ``render_pipeline`` timed directly (CUDA events) for the bench's
+    5-stage chain at batch 8 @ 512 and 2 x 2160 x 3840, and for the split
+    chain at batch 8 @ 512, beside the eager chain (allow_fused=False)."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+    import yaml
+    from PIL import Image
+
+    from adaptiveisp_tpu_torch import render_isp
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.data.sources import load_image_file
+    from adaptiveisp_tpu_torch.ops.bank import render_pipeline
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    root = Path(__file__).resolve().parent / "build" / "render_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "imgs").mkdir(parents=True)
+    rng = np.random.RandomState(50)
+    for i in range(SERVE_BATCH):
+        Image.fromarray((rng.rand(SERVE_SIZE, SERVE_SIZE, 3) * 255).astype(
+            np.uint8)).save(root / "imgs" / f"im{i}.png")
+    with open(root / "chain.yaml", "w") as f:
+        yaml.safe_dump([{"name": n, "params": p} for n, p in RENDER_SCRIPT],
+                       f)
+    args = ["--source", str(root / "imgs"), "--script",
+            str(root / "chain.yaml"), "--batch", str(SERVE_BATCH),
+            "--exist-ok"]
+    render_isp.main(args + ["--out", str(root / "warm")])
+    torch.cuda.synchronize()
+
+    # ---- the main path: launch counts read around exactly this run ----
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out_dir = render_isp.main(args + ["--out", str(root / "out")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+
+    cfg = Config()
+    cpu_stages = [(n, torch.tensor([p], dtype=torch.float32))
+                  for n, p in RENDER_SCRIPT]
+    frames = np.stack([load_image_file(str(root / "imgs" / f"im{i}.png"))
+                       for i in range(SERVE_BATCH)])
+    with torch.no_grad():
+        want = render_pipeline(cfg, torch.from_numpy(frames), [
+            (n, p.expand(SERVE_BATCH, -1)) for n, p in cpu_stages]).numpy()
+    want = np.clip(want, 0.0, 1.0)
+    got = np.stack([np.asarray(Image.open(Path(out_dir) / f"im{i}.png"),
+                               np.float32) / 255.0
+                    for i in range(SERVE_BATCH)])
+    err = float(np.abs(got - want).max())
+    tol = 1.0 / 255 + 5e-5
+    ok_counts = launches == only(pipeline_fwd=2, nlm_gray_fwd=1)
+    rec = {"phase": "render", "entry": "render_isp.main", "batch":
+           SERVE_BATCH, "size": SERVE_SIZE,
+           "chain": [n for n, _ in RENDER_SCRIPT], "launches": launches,
+           "expected_launches": {"pipeline_fwd": 2, "nlm_gray_fwd": 1},
+           "cli_wall_s": wall, "png_max_abs_err_vs_cpu": err,
+           "png_tolerance": tol, "ok": ok_counts and err <= tol}
+
+    dev = torch.device("cuda")
+    timed = {}
+    cases = {"bench5_b8_512": (SERVE_BATCH, SERVE_SIZE, SERVE_SIZE, None),
+             "bench5_b2_2160x3840": (2, *UHD, None),
+             "split_b8_512": (SERVE_BATCH, SERVE_SIZE, SERVE_SIZE,
+                              RENDER_SCRIPT)}
+    for label, (n, hgt, wid, script) in cases.items():
+        img = torch.from_numpy(rng.rand(n, hgt, wid, 3).astype(
+            np.float32)).to(dev)
+        if script is None:
+            stages = [(nm, torch.from_numpy(p).to(dev))
+                      for nm, p in _stages_5(n, rng)]
+        else:
+            stages = [(nm, torch.tensor([p], device=dev).expand(n, -1))
+                      for nm, p in script]
+        with torch.no_grad():
+            render_pipeline(cfg, img, stages)
+            ms = cuda_time_ms(lambda: render_pipeline(cfg, img, stages),
+                              RENDER_REPS)
+            eager = cuda_time_ms(lambda: render_pipeline(
+                cfg, img, stages, allow_fused=False), 5)
+        mpix = n * hgt * wid / 1e6
+        timed[label] = {"shape": [n, hgt, wid, 3], "ms": ms,
+                        "mpix_per_s": mpix / (ms / 1e3), "eager_ms": eager,
+                        "eager_mpix_per_s": mpix / (eager / 1e3)}
+    rec["timed"] = timed
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"render path: launches {launches} (expected "
+                             f"2 K4 and 1 K1), PNG error {err} > {tol}")
+    return launches
+
+
+def phase_fused_grad():
+    """One ``fused_run`` gradient on the card (K4 forward; backward through
+    the eager chain) at batch 2 @ 128 px, with respect to the image and
+    each stage's parameters, against autograd of the plain chain."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.ops.bank import render_pipeline
+    from adaptiveisp_tpu_torch.ops.cuda.pipeline import fused_run
+
+    cfg = Config()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(60)
+    img = rng.uniform(0.02, 0.98, (2, 128, 128, 3)).astype(np.float32)
+    stages = _stages_5(2, rng)
+    g = torch.from_numpy(rng.randn(*img.shape).astype(np.float32)).to(dev)
+    grads, outs = [], []
+    for fused in (True, False):
+        x = torch.from_numpy(img).to(dev).requires_grad_(True)
+        ps = [torch.from_numpy(p).to(dev).requires_grad_(True)
+              for _, p in stages]
+        names = [nm for nm, _ in stages]
+        build.reset_launches()
+        stages_t = list(zip(names, ps))
+        out = (fused_run(cfg, x, stages_t) if fused
+               else render_pipeline(cfg, x, stages_t, allow_fused=False))
+        out.backward(g)
+        torch.cuda.synchronize()
+        if fused:
+            launches = dict(build.LAUNCHES)
+        outs.append(out.detach())
+        grads.append([x.grad] + [p.grad for p in ps])
+    errs = {}
+    ok = launches == only(pipeline_fwd=1)
+    for key, a, b in zip(["img"] + [nm for nm, _ in stages], *grads):
+        errs[key] = float((a - b).abs().max() / (b.abs().max() + 1e-12))
+        ok = ok and bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6))
+    diff = (outs[0] - outs[1]).abs()
+    err_out = float(diff.max())
+    ok = ok and bool(torch.all(diff <= 2e-5 + 2e-4 * outs[1].abs()))
+    emit({"phase": "fused_grad", "shape": list(img.shape),
+          "stages": [nm for nm, _ in stages], "launches": launches,
+          "max_abs_err_out": err_out, "grad_rel_err": errs,
+          "tolerance": {"rtol": 1e-5, "atol": 1e-6}, "ok": ok})
+    if not ok:
+        raise AssertionError("fused_run gradient disagrees with the plain "
+                             "chain")
 
 
 def phase_serving():
@@ -504,7 +917,7 @@ def phase_train(dtype_name: str):
            "first_update_max_abs": delta, "lr": tcfg.lr, "metrics": m,
            "metrics_finite": finite}
     emit(rec)
-    if launches != {"nlm_gray_fwd": TRAIN_STEPS, "nlm_gray_bwd": TRAIN_STEPS}:
+    if launches != only(nlm_gray_fwd=TRAIN_STEPS, nlm_gray_bwd=TRAIN_STEPS):
         raise AssertionError(f"train launches {launches}, expected one K1 "
                              f"and one K2 launch per step")
     if not finite or state.step != TRAIN_WARMUP + TRAIN_STEPS:
@@ -587,7 +1000,7 @@ def phase_train_vs_cpu():
     # convolutions; metrics (the reward is 100x a loss difference) to 1e-3
     ok = (errs and max(errs.values()) <= 1e-3 and par["agent"] <= 1.5e-6
           and par["value"] <= 1.5e-6 and sel[0] == denoise and nlm_moved > 0
-          and launches == {"nlm_gray_fwd": 1, "nlm_gray_bwd": 1})
+          and launches == only(nlm_gray_fwd=1, nlm_gray_bwd=1))
     emit({"phase": "train_vs_cpu", "batch": 2, "size": 128,
           "selected_filter": sel, "launches": launches,
           "metric_rel_err": errs, "param_max_abs_diff": par, "lr": tcfg.lr,
@@ -610,15 +1023,20 @@ def main() -> int:
         phase_build()
         kern = phase_kernel()
         kern_bwd = phase_kernel_bwd()
+        kern_pipe = phase_kernel_pipeline()
+        kern_sym, sym_path = phase_kernel_sym()
         launches = phase_serving()
         trains = [phase_train(d) for d in ("bf16", "f32")]
         phase_train_vs_cpu()
+        render = phase_render()
+        phase_fused_grad()
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
     by_path = {"serving": launches,
                **{f"train_{t['detector_dtype']}": t["launches"]
-                  for t in trains}}
+                  for t in trains},
+               "render": render, "kernel": sym_path}
 
     def entry(name, source, replaces, cases, err_key):
         main_case = cases["main"]
@@ -631,7 +1049,7 @@ def main() -> int:
                 "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": None}
 
-    emit({"kernels": [
+    kernels = [
         entry("nlm_gray_fwd",
               "adaptiveisp_tpu_torch/ops/cuda/csrc/nlm_fwd.cu",
               "adaptiveisp_tpu/ops/pallas/nlm.py:72", kern,
@@ -639,7 +1057,21 @@ def main() -> int:
         entry("nlm_gray_bwd",
               "adaptiveisp_tpu_torch/ops/cuda/csrc/nlm_bwd.cu",
               "adaptiveisp_tpu/ops/pallas/nlm.py:378", kern_bwd,
-              "max_abs_err_drgb")]})
+              "max_abs_err_drgb"),
+        entry("pipeline_fwd",
+              "adaptiveisp_tpu_torch/ops/cuda/csrc/pipeline_fwd.cu",
+              "adaptiveisp_tpu/ops/pallas/pipeline.py:166", kern_pipe,
+              "max_abs_err"),
+        entry("nlm_gray_fwd_sym",
+              "adaptiveisp_tpu_torch/ops/cuda/csrc/nlm_fwd_sym.cu",
+              "adaptiveisp_tpu/ops/pallas/nlm.py:123", kern_sym,
+              "max_abs_err_u")]
+    unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
+    if unlaunched:
+        print(f"chip_smoke: {unlaunched} launched on no path",
+              file=sys.stderr)
+        return 1
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,21 @@ card and run without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_nlm_bwd.py
 
+Both JAX references are built once per module, each by this file run as a
+script in a fresh interpreter, the two started together, with XLA's
+cheapest CPU compile options (``CHEAP_XLA``).  Each is hundreds of small XLA
+compiles (one per roll shift of the eager chain) or one large interpret-mode
+kernel; the options about halve their compile time and change the values by
+float32 rounding only (6e-7 on dL/drgb, 4e-7 relative on dL/dhh).
+
 Tolerances: dL/drgb atol 2e-5 and dL/dhh rtol 2e-4, atol 1e-5, those of
 ``tests/test_pallas_nlm.py`` for the Pallas backward against autodiff
 (float32 sums over 121 offsets in another order).
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +37,9 @@ from adaptiveisp_tpu_torch.ops.math import clip_grad_mask
 
 DRGB_ATOL = 2e-5
 DH_RTOL, DH_ATOL = 2e-4, 1e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHEAP_XLA = ("--xla_backend_optimization_level=0 "
+             "--xla_llvm_disable_expensive_passes=true")
 
 
 @pytest.fixture
@@ -33,16 +47,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the hand-written NLM kernels)")
     return torch.device("cuda")
-
-
-@pytest.fixture(scope="module")
-def jx():
-    """(jax, jax.numpy, adaptiveisp_tpu.ops.denoise, ...pallas.nlm)."""
-    jax = pytest.importorskip("jax")
-    from adaptiveisp_tpu.ops import denoise
-    from adaptiveisp_tpu.ops.pallas import nlm
-
-    return jax, jax.numpy, denoise, nlm
 
 
 def _inputs(seed, n, h, w, hs):
@@ -58,29 +62,89 @@ def _inputs(seed, n, h, w, hs):
     return rgb, np.asarray(hs, np.float32).reshape(n, 1), g
 
 
-def _jax_clip_vjp(jax, jnp, u, g):
-    _, vjp = jax.vjp(lambda x: jnp.clip(x, 0.0, 1.0), u)
-    return vjp(g)[0]
-
-
-def test_bwd_plain_matches_pallas_backward_gated(jx):
+def _pallas_case():
     """H = 64 is two of the Pallas backward's 32-row tiles, so its
-    cross-tile gather runs; gate [1, 0, 0.3], the 0.3 image with h = 0."""
-    jax, jnp, _, jnlm = jx
+    cross-tile gather runs; gate [1, 0, 0.3], the 0.3 image with h = 0;
+    the blend's cotangent of the gated-off image is zero."""
     rgb, h, g = _inputs(3, 3, 64, 64, [0.4, 0.2, 0.0])
-    gate = np.array([[1.0], [0.0], [0.3]], np.float32)
-    rgb_j, h_j, gate_j = jnp.asarray(rgb), jnp.asarray(h), jnp.asarray(gate)
-    u, wsum = jnlm._nlm_forward_uw(rgb_j, h_j, gate_j, interpret=True)
-    g[1] = 0.0   # the blend's cotangent of a gated-off image is zero
-    v = _jax_clip_vjp(jax, jnp, u, jnp.asarray(g))
-    dr_j, dh_j = jnlm._nlm_backward(rgb_j, h_j, gate_j, v, u, wsum,
-                                    interpret=True)
+    g[1] = 0.0
+    return rgb, h, np.array([[1.0], [0.0], [0.3]], np.float32), g
+
+
+def _xla_case():
+    """An odd shape: gate [0, 1, 0.7], the 0.7 image with h = 0."""
+    rgb, h, g = _inputs(5, 3, 37, 53, [0.3, 0.6, 0.0])
+    return rgb, h, np.array([0.0, 1.0, 0.7], np.float32), g
+
+
+def _build_reference(kind, path):
+    """JAX's reference for one case, saved to ``path`` (run as a script):
+    ``pallas``: the Pallas forward and backward in interpret mode, with
+    v = the clip's VJP of the cotangent; ``xla``: ``jax.vjp`` of JAX's
+    ``nlm_gray_dispatch`` (the XLA chain with the gate mask on the CPU)."""
+    import jax
+    import jax.numpy as jnp
+
+    if kind == "pallas":
+        from adaptiveisp_tpu.ops.pallas import nlm as jnlm
+
+        rgb, h, gate, g = _pallas_case()
+        args = [jnp.asarray(a) for a in (rgb, h, gate)]
+        u, wsum = jnlm._nlm_forward_uw(*args, interpret=True)
+        _, clip_vjp = jax.vjp(lambda x: jnp.clip(x, 0.0, 1.0), u)
+        v = clip_vjp(jnp.asarray(g))[0]
+        dr, dh = jnlm._nlm_backward(*args, v, u, wsum, interpret=True)
+        out = {"v": v, "dr": dr, "dh": dh}
+    else:
+        from adaptiveisp_tpu.ops import denoise as jd
+
+        rgb, h, gate, g = _xla_case()
+        _, vjp = jax.vjp(lambda r, hh: jd.nlm_gray_dispatch(
+            r, hh, gate=jnp.asarray(gate)), jnp.asarray(rgb), jnp.asarray(h))
+        dr, dh = vjp(jnp.asarray(g))
+        out = {"dr": dr, "dh": dh}
+    np.savez(path, **{k: np.asarray(v) for k, v in out.items()})
+
+
+@pytest.fixture(scope="module")
+def refs(tmp_path_factory):
+    """{"pallas": ..., "xla": ...}: both JAX references, each built by
+    :func:`_build_reference` in its own interpreter, the two at once.  The
+    tier-1 run (``--dist loadfile``) keeps this file's tests on one worker,
+    so each reference is built once, and both at once rather than one
+    after the other."""
+    pytest.importorskip("jax")
+    d = tmp_path_factory.mktemp("nlm_refs")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=CHEAP_XLA,
+               PYTHONPATH=REPO)
+    procs = {k: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), k, str(d / f"{k}.npz")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k in ("pallas", "xla")}
+    out = {}
+    try:
+        for k, proc in procs.items():
+            log = proc.communicate(timeout=900)[0]
+            assert proc.returncode == 0, log
+            with np.load(d / f"{k}.npz") as z:
+                out[k] = dict(z)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def test_bwd_plain_matches_pallas_backward_gated(refs):
+    """The plain twin against the Pallas backward of :func:`_pallas_case`."""
+    rgb, h, gate, _ = _pallas_case()
+    ref = refs["pallas"]
     dr_t, dh_t = td.nlm_gray_bwd_plain(
         torch.from_numpy(rgb), torch.from_numpy(h), torch.from_numpy(gate),
-        torch.from_numpy(np.asarray(v)))
-    np.testing.assert_allclose(dr_t.numpy(), np.asarray(dr_j),
-                               atol=DRGB_ATOL)
-    np.testing.assert_allclose(dh_t.numpy(), np.asarray(dh_j), rtol=DH_RTOL,
+        torch.from_numpy(ref["v"]))
+    np.testing.assert_allclose(dr_t.numpy(), ref["dr"], atol=DRGB_ATOL)
+    np.testing.assert_allclose(dh_t.numpy(), ref["dh"], rtol=DH_RTOL,
                                atol=DH_ATOL)
     assert not torch.any(dr_t[1]) and float(dh_t[1, 0]) == 0.0
 
@@ -88,7 +152,7 @@ def test_bwd_plain_matches_pallas_backward_gated(jx):
 def _plain_kernels(monkeypatch):
     """Stand the plain versions in for K1 and K2 inside ``ops.cuda.nlm``,
     so ``NLMGray``'s own wiring runs on the CPU."""
-    def fwd(rgb, h, gate):
+    def fwd(rgb, h, gate, sym=False):
         u, w = td.nlm_gray_uw(rgb, h)
         on = (gate != 0).reshape(-1, 1, 1, 1)
         return torch.where(on, u, 0.0), torch.where(on, w, 0.0)
@@ -98,18 +162,11 @@ def _plain_kernels(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def xla_ref(jx):
-    """jax.vjp of JAX's ``nlm_gray_dispatch`` (the XLA chain with the gate
-    mask on the CPU) at an odd shape: gate [0, 1, 0.7], the 0.7 image with
-    h = 0.  Built once: an eager vjp of the 121-offset chain takes about a
-    minute here."""
-    jax, jnp, jd, _ = jx
-    rgb, h, g = _inputs(5, 3, 37, 53, [0.3, 0.6, 0.0])
-    gate = np.array([0.0, 1.0, 0.7], np.float32)
-    _, vjp = jax.vjp(lambda r, hh: jd.nlm_gray_dispatch(
-        r, hh, gate=jnp.asarray(gate)), jnp.asarray(rgb), jnp.asarray(h))
-    dr, dh = vjp(jnp.asarray(g))
-    return rgb, h, gate, g, np.asarray(dr), np.asarray(dh)
+def xla_ref(refs):
+    """(rgb, h, gate, g, dL/drgb, dL/dh): ``jax.vjp`` of JAX's
+    ``nlm_gray_dispatch`` at :func:`_xla_case`."""
+    rgb, h, gate, g = _xla_case()
+    return rgb, h, gate, g, refs["xla"]["dr"], refs["xla"]["dh"]
 
 
 def test_nlmgray_wiring_matches_jax_vjp_odd_shape(xla_ref, monkeypatch):
@@ -194,3 +251,7 @@ def test_nlmgray_backward_launches_k2_on_card(cuda_device):
     td.nlm_gray(xp, hp).backward(torch.from_numpy(g).to(cuda_device))
     torch.testing.assert_close(x.grad, xp.grad, rtol=0, atol=DRGB_ATOL)
     torch.testing.assert_close(ht.grad, hp.grad, rtol=DH_RTOL, atol=DH_ATOL)
+
+
+if __name__ == "__main__":
+    _build_reference(sys.argv[1], sys.argv[2])
