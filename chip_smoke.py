@@ -10,12 +10,15 @@ Phases, each printing one JSON line:
      cuda/csrc`` (one nvcc per source, all started together);
   3. kernel: each kernel against its plain PyTorch version on the card, at
      the main path's shape and at an odd shape, with its time, the plain
-     version's time and the card's bound for the same work: K1 and K2; K4
+     version's time and the card's bound for the same work: K1 and K2, also
+     on flat 8 x 8 patches (exact zero distances, images at h = 0 and
+     1e-4) and on a [1,6,9,3] image smaller than the halo; K4
      (the fused render pass) on the bench's 5-stage chain at [8,512,512,3]
      with per-image parameters, a pointwise stack on exact 0/1, out-of-range,
      grey and two-channel-tie pixels, and four sharpens interleaved with
      pointwise stages at [2,37,53,3] and [1,2160,3840,3]; K3 (the symmetric
-     NLM forward) against the plain version and K1, timed in turns with K1,
+     NLM forward) against the plain version and K1 in the same four cases,
+     timed in turns with K1,
      then ``NLMGray(sym=True)`` forward and backward once (K3, then K2; the
      launch counts of this run are the ``kernel`` path);
   4. serving: the port's serving path at full width, through the user entry
@@ -160,16 +163,18 @@ def nlm_bound(n_on: int, n: int, h: int, w: int):
 def nlm_bwd_bound(n_on: int, n: int, h: int, w: int):
     """The gated NLM backward for these inputs: rgb, v and U (12 bytes a
     pixel each) and W (4) read once for the gated-on images, dL/drgb (12)
-    written for every image.  Per gated-on pixel the least arithmetic is the
-    forward's 60 weights of 13 operations (3 on the special-function units;
-    the weight of -d at p is that of d at p - d) and, per offset, 6 (g_w:
-    three multiply-adds) + 1 (g_w w) + 2 (strength term and its sum) + 3
-    (db: two multiplies, a divide) + 8 (box sum of db) + 3 (z = 2 diff dd2)
-    + 2 (z(p) - z(p + d) into dL/dy) + 6 (three direct multiply-adds) = 31
-    operations, 1 (the divide) on the special-function units."""
+    written for every image.  The weight of -d at p is that of d at p - d,
+    and the adjoints of d and -d share that chain and one box sum, so per
+    gated-on pixel the least arithmetic is, for each of the 60 pairs, the
+    forward's weight of 13 operations (3 on the special-function units) and
+    43 for both offsets' adjoints: 12 (g_d and g_-d: three multiply-adds
+    each) + 2 (their sum, times w) + 2 (strength term and its sum) + 3 (db:
+    two multiplies, a divide) + 8 (box sum of db) + 2 (Z = 2 diff box(db))
+    + 2 (Z(p) - Z(p + d) into dL/dy) + 12 (six direct multiply-adds), 1 (the
+    divide) on the special-function units."""
     px_on, px = n_on * h * w, n * h * w
     return bound(px_on * (12 * 3 + 4) + px * 12 + n * 12,
-                 px_on * (60 * 13 + 121 * 31), px_on * (60 * 3 + 121))
+                 px_on * 60 * (13 + 43), px_on * 60 * (3 + 1))
 
 
 def _nlm_inputs(rng, n, hgt, wid, dev):
@@ -186,6 +191,32 @@ def _nlm_inputs(rng, n, hgt, wid, dev):
     return torch.from_numpy(rgb).to(dev), torch.from_numpy(h).to(dev)
 
 
+def _flat_patches(rng, n, hgt, wid):
+    """Piecewise-constant 8 x 8 blocks of exact 0, 1 and two greys: many
+    patch distances are exactly 0."""
+    blocks = rng.choice(np.array([0.0, 1.0, 0.25, 0.625], np.float32),
+                        (n, -(-hgt // 8), -(-wid // 8), 3))
+    return np.ascontiguousarray(
+        np.repeat(np.repeat(blocks, 8, 1), 8, 2)[:, :hgt, :wid])
+
+
+def _nlm_cases(rng, dev, odd_gate):
+    """(name, rgb, h, gate [N] numpy) of the NLM kernel checks: main
+    [8,512,512,3] with 5 of 8 images on; odd [2,37,53,3]; flat
+    [4,72,100,3], flat 8 x 8 patches with images at h = 0 and h = 1e-4 and
+    one gated off; tiny [1,6,9,3], smaller than the 7-pixel halo."""
+    import torch
+
+    for name, gate, shape in (("main", MAIN_GATE, (8, 512, 512)),
+                              ("odd", odd_gate, (2, 37, 53)),
+                              ("tiny", [1.0], (1, 6, 9))):
+        rgb, h = _nlm_inputs(rng, *shape, dev)
+        yield name, rgb, h, np.asarray(gate, np.float32)
+    rgb = torch.from_numpy(_flat_patches(rng, 4, 72, 100)).to(dev)
+    h = torch.tensor([[0.0], [1e-4], [0.3], [0.5]], device=dev)
+    yield "flat", rgb, h, np.array([1, 1, 0.5, 0], np.float32)
+
+
 def phase_kernel_bwd():
     """K2 against its plain twin (autograd of the plain chain) on the card,
     with v = g * clip-gradient mask of U for a seeded normal g."""
@@ -197,11 +228,9 @@ def phase_kernel_bwd():
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(10)
-    cases = {"main": (MAIN_GATE, (8, 512, 512)),
-             "odd": (np.array([1, 0.3], np.float32), (2, 37, 53))}
     result = {}
-    for name, (gate_np, (n, hgt, wid)) in cases.items():
-        rgb, h = _nlm_inputs(rng, n, hgt, wid, dev)
+    for name, rgb, h, gate_np in _nlm_cases(rng, dev, [1, 0.3]):
+        n, hgt, wid, _ = rgb.shape
         gate = torch.from_numpy(gate_np[:, None]).to(dev)
         u, wsum = nlm_gray_fwd(rgb, h, gate)
         g = torch.from_numpy(rng.randn(n, hgt, wid, 3).astype(np.float32))
@@ -247,17 +276,9 @@ def phase_kernel():
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
-    cases = {
-        "main": (MAIN_GATE, (8, 512, 512)),
-        "odd": (np.array([1, 0], np.float32), (2, 37, 53)),
-    }
     result = {}
-    for name, (gate_np, (n, hgt, wid)) in cases.items():
-        rgb = torch.from_numpy(rng.uniform(-0.05, 1.05, (n, hgt, wid, 3))
-                               .astype(np.float32)).to(dev)
-        h_np = rng.uniform(0.02, 1.0, (n, 1)).astype(np.float32)
-        h_np[min(3, n - 1)] = 0.0   # a gated-on image with zero strength
-        h = torch.from_numpy(h_np).to(dev)
+    for name, rgb, h, gate_np in _nlm_cases(rng, dev, [1, 0]):
+        n, hgt, wid, _ = rgb.shape
         gate = torch.from_numpy(gate_np[:, None]).to(dev)
         u, w = nlm_gray_fwd(rgb, h, gate)
         torch.cuda.synchronize()
@@ -438,11 +459,9 @@ def phase_kernel_sym():
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(40)
-    cases = {"main": (MAIN_GATE, (SERVE_BATCH, SERVE_SIZE, SERVE_SIZE)),
-             "odd": (np.array([1, 0], np.float32), (2, 37, 53))}
     result = {}
-    for name, (gate_np, (n, hgt, wid)) in cases.items():
-        rgb, h = _nlm_inputs(rng, n, hgt, wid, dev)
+    for name, rgb, h, gate_np in _nlm_cases(rng, dev, [1, 0]):
+        n, hgt, wid, _ = rgb.shape
         gate = torch.from_numpy(gate_np[:, None]).to(dev)
         u3, w3 = nlm_gray_fwd(rgb, h, gate, sym=True)
         u1, w1 = nlm_gray_fwd(rgb, h, gate)

@@ -106,15 +106,8 @@ def test_kernel_wrapper_raises_on_cpu_tensor():
         nlm_gray_fwd(torch.from_numpy(rgb), torch.from_numpy(h), gate)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 512, 512), (2, 37, 53)])
-def test_kernel_matches_plain_version_on_card(cuda_device, shape):
-    n = shape[0]
-    rgb, _ = _inputs(3, *shape, [0.0] * n)
-    rng = np.random.RandomState(4)
-    h = rng.uniform(0.02, 1.0, (n, 1)).astype(np.float32)
-    h[0] = 0.0  # a gated-on image with zero strength
-    gate = np.array([1, 0, 0.3, 1, 0, 1, 1, 0][:n], np.float32)[:, None]
+def _check_kernel(cuda_device, rgb, h, gate):
+    n = rgb.shape[0]
     rgb_d = torch.from_numpy(rgb).to(cuda_device)
     h_d = torch.from_numpy(h).to(cuda_device)
     gate_d = torch.from_numpy(gate).to(cuda_device)
@@ -128,3 +121,32 @@ def test_kernel_matches_plain_version_on_card(cuda_device, shape):
                                atol=0)
     off = ~on.reshape(n)
     assert not torch.any(u[off]) and not torch.any(w[off])
+    # K3, the symmetric forward, computes the same function
+    u3, _ = nlm_gray_fwd(rgb_d, h_d, gate_d, sym=True)
+    torch.testing.assert_close(u, u3, rtol=0, atol=5e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512, 512), (2, 37, 53), (1, 6, 9)])
+def test_kernel_matches_plain_version_on_card(cuda_device, shape):
+    n = shape[0]
+    rgb, _ = _inputs(3, *shape, [0.0] * n)
+    rng = np.random.RandomState(4)
+    h = rng.uniform(0.02, 1.0, (n, 1)).astype(np.float32)
+    h[0] = 0.0  # a gated-on image with zero strength
+    gate = np.array([1, 0, 0.3, 1, 0, 1, 1, 0][:n], np.float32)[:, None]
+    _check_kernel(cuda_device, rgb, h, gate)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_flat_patches_on_card(cuda_device):
+    """Piecewise-constant 8 x 8 blocks of exact 0, 1 and two greys (many
+    patch distances exactly 0), images at h = 0 and h = 1e-4."""
+    rng = np.random.RandomState(6)
+    blocks = rng.choice(np.array([0.0, 1.0, 0.25, 0.625], np.float32),
+                        (4, 9, 13, 3))
+    rgb = np.ascontiguousarray(
+        np.repeat(np.repeat(blocks, 8, 1), 8, 2)[:, :72, :100])
+    h = np.array([[0.0], [1e-4], [0.3], [0.5]], np.float32)
+    gate = np.array([[1.0], [1.0], [0.5], [0.0]], np.float32)
+    _check_kernel(cuda_device, rgb, h, gate)

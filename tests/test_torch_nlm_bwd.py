@@ -33,7 +33,8 @@ import torch
 from adaptiveisp_tpu_torch.ops import denoise as td
 from adaptiveisp_tpu_torch.ops.cuda import build
 from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
-from adaptiveisp_tpu_torch.ops.math import clip_grad_mask
+from adaptiveisp_tpu_torch.ops.denoise import canon_gate
+from adaptiveisp_tpu_torch.ops.math import clip_grad_mask, rgb_to_luminance
 
 DRGB_ATOL = 2e-5
 DH_RTOL, DH_ATOL = 2e-4, 1e-5
@@ -202,6 +203,90 @@ def test_dispatch_cpu_autograd_matches_jax_grad_with_gate(xla_ref):
     assert not torch.any(x.grad[0]) and float(ht.grad[0, 0]) == 0.0
 
 
+def _half_offsets(r=5):
+    """The 60 offsets of the half set, in the kernels' order."""
+    return [(0, dx) for dx in range(1, r + 1)] + [
+        (dy, dx) for dy in range(1, r + 1) for dx in range(-r, r + 1)]
+
+
+def _paired_adjoint(rgb, h, gate, v):
+    """Closed-form adjoint of the (U, W) chain as K2 computes it: one weight
+    chain per pair (d, -d) of the half set, plus the centre.  With
+    (S_d x)(p) = x(p - d), a = v / W and q = -(sum_c v_c U_c) / W:
+    g = a . S_d rgb + q and g' = S_d a . rgb + S_d q (dL/dw_-d on the
+    d-grid); dL/drgb += S_-d(w a) + w S_d a; dL/dhh += sum w s (g + g');
+    db + db' = -(g + g') w / (2 hh s) where b > 0, one box sum for both;
+    Z = 2 (y - S_d y) box5(db + db'), dL/dy += Z - S_-d Z."""
+    n = rgb.shape[0]
+    hh = (h.clamp_min(0.0) + td.EPS)[:, None, None, :]
+    u, wsum = td.nlm_gray_uw(rgb, h)
+    y = rgb_to_luminance(rgb)
+    a = v / wsum
+    q = -(v * u).sum(-1, keepdim=True) / wsum
+    dr, dy, dh = a.clone(), torch.zeros_like(y), torch.zeros_like(hh)
+    for d in _half_offsets():
+        fwd = lambda x: torch.roll(x, d, dims=(1, 2))              # noqa
+        back = lambda x: torch.roll(x, (-d[0], -d[1]), dims=(1, 2))  # noqa
+        diff = y - fwd(y)
+        b = td.box_sum(diff * diff, 5)
+        pos = b > 0
+        s = torch.where(pos, torch.sqrt(torch.where(pos, b, 1.0)), 0.0)
+        w = torch.exp(-s / hh)
+        gg = ((a * fwd(rgb)).sum(-1, keepdim=True) + q
+              + (fwd(a) * rgb).sum(-1, keepdim=True) + fwd(q))
+        dr = dr + back(w * a) + w * fwd(a)
+        dh = dh + (w * s * gg).sum((1, 2, 3), keepdim=True)
+        db = torch.where(pos, -0.5 * gg * w
+                         / (hh * torch.where(pos, s, 1.0)), 0.0)
+        z = 2.0 * diff * td.box_sum(db, 5)
+        dy = dy + z - back(z)
+    lum = torch.tensor([0.299, 0.587, 0.114])
+    dr = dr + lum * clip_grad_mask(rgb, 0.0, 1.0) * dy
+    on = canon_gate(gate, n, rgb.device) != 0
+    return (torch.where(on.reshape(n, 1, 1, 1), dr, 0.0),
+            torch.where(on, (dh / (hh * hh)).reshape(n, 1), 0.0))
+
+
+def _flat_patches(seed, n, h, w):
+    """Piecewise-constant 8 x 8 blocks of exact 0, 1 and two greys: many
+    patch distances are exactly 0."""
+    rng = np.random.RandomState(seed)
+    blocks = rng.choice(np.array([0.0, 1.0, 0.25, 0.625], np.float32),
+                        (n, -(-h // 8), -(-w // 8), 3))
+    return np.ascontiguousarray(
+        np.repeat(np.repeat(blocks, 8, 1), 8, 2)[:, :h, :w])
+
+
+def test_paired_adjoint_matches_pallas_backward(refs):
+    """The pairing identities K2 uses, against the Pallas backward of
+    :func:`_pallas_case` (gate [1, 0, 0.3], the 0.3 image at h = 0)."""
+    rgb, h, gate, _ = _pallas_case()
+    ref = refs["pallas"]
+    dr, dh = _paired_adjoint(torch.from_numpy(rgb), torch.from_numpy(h),
+                             torch.from_numpy(gate),
+                             torch.from_numpy(ref["v"]))
+    np.testing.assert_allclose(dr.numpy(), ref["dr"], atol=DRGB_ATOL)
+    np.testing.assert_allclose(dh.numpy(), ref["dh"], rtol=DH_RTOL,
+                               atol=DH_ATOL)
+    assert not torch.any(dr[1]) and float(dh[1, 0]) == 0.0
+
+
+def test_paired_adjoint_matches_plain_flat_patches():
+    """The pairing identities against ``nlm_gray_bwd_plain`` at an odd
+    shape of flat 8 x 8 patches (exact zero distances), one image at
+    h = 0."""
+    rgb = torch.from_numpy(_flat_patches(7, 2, 37, 53))
+    h = torch.tensor([[0.3], [0.0]])
+    gate = torch.ones((2, 1))
+    g = torch.from_numpy(np.random.RandomState(8).randn(2, 37, 53, 3)
+                         .astype(np.float32))
+    v = g * clip_grad_mask(td.nlm_gray_uw(rgb, h)[0], 0.0, 1.0)
+    dr_p, dh_p = td.nlm_gray_bwd_plain(rgb, h, gate, v)
+    dr, dh = _paired_adjoint(rgb, h, gate, v)
+    torch.testing.assert_close(dr, dr_p, rtol=0, atol=DRGB_ATOL)
+    torch.testing.assert_close(dh, dh_p, rtol=DH_RTOL, atol=DH_ATOL)
+
+
 def test_bwd_wrapper_raises_on_cpu_tensor():
     rgb, h, g = _inputs(0, 2, 8, 8, [0.3, 0.3])
     t = torch.from_numpy
@@ -211,20 +296,13 @@ def test_bwd_wrapper_raises_on_cpu_tensor():
                           torch.ones((2, 8, 8, 1)))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 512, 512), (2, 37, 53)])
-def test_kernel_bwd_matches_plain_on_card(cuda_device, shape):
-    n = shape[0]
-    rgb, _, g = _inputs(11, *shape, [0.0] * n)
-    rng = np.random.RandomState(12)
-    h = rng.uniform(0.02, 1.0, (n, 1)).astype(np.float32)
-    h[0] = 0.0   # a gated-on image with zero strength
-    gate = np.array([1, 0, 0.3, 1, 0, 1, 1, 0][:n], np.float32)[:, None]
-    rgb_d, h_d, gate_d = (torch.from_numpy(a).to(cuda_device)
+def _check_kernel_bwd(device, rgb, h, gate, g):
+    n = rgb.shape[0]
+    rgb_d, h_d, gate_d = (torch.from_numpy(a).to(device)
                           for a in (rgb, h, gate))
     u, w = cnlm.nlm_gray_fwd(rgb_d, h_d, gate_d)
     on = (gate_d != 0).reshape(n, 1, 1, 1)
-    v = torch.where(on, torch.from_numpy(g).to(cuda_device), 0.0) \
+    v = torch.where(on, torch.from_numpy(g).to(device), 0.0) \
         * clip_grad_mask(u, 0.0, 1.0)
     dr, dhh = cnlm.nlm_gray_bwd(rgb_d, h_d, gate_d, v.contiguous(), u, w)
     torch.cuda.synchronize()
@@ -233,6 +311,29 @@ def test_kernel_bwd_matches_plain_on_card(cuda_device, shape):
     torch.testing.assert_close(dhh, dhh_p, rtol=DH_RTOL, atol=DH_ATOL)
     off = ~on.reshape(n)
     assert not torch.any(dr[off]) and not torch.any(dhh[off])
+
+
+@pytest.mark.cuda
+def test_kernel_bwd_matches_plain_flat_patches_on_card(cuda_device):
+    """Flat 8 x 8 patches (exact zero distances), images at h = 0 and
+    h = 1e-4, one gated off."""
+    rgb = _flat_patches(14, 4, 72, 100)
+    h = np.array([[0.0], [1e-4], [0.3], [0.5]], np.float32)
+    gate = np.array([[1.0], [1.0], [0.5], [0.0]], np.float32)
+    g = np.random.RandomState(15).randn(*rgb.shape).astype(np.float32)
+    _check_kernel_bwd(cuda_device, rgb, h, gate, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512, 512), (2, 37, 53), (1, 6, 9)])
+def test_kernel_bwd_matches_plain_on_card(cuda_device, shape):
+    n = shape[0]
+    rgb, _, g = _inputs(11, *shape, [0.0] * n)
+    rng = np.random.RandomState(12)
+    h = rng.uniform(0.02, 1.0, (n, 1)).astype(np.float32)
+    h[0] = 0.0   # a gated-on image with zero strength
+    gate = np.array([1, 0, 0.3, 1, 0, 1, 1, 0][:n], np.float32)[:, None]
+    _check_kernel_bwd(cuda_device, rgb, h, gate, g)
 
 
 @pytest.mark.cuda
