@@ -30,10 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # per-source additions: the render pass rounds every multiply and add on its
 # own, as the plain chain's separate tensor operations do
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"pipeline_fwd": ("-fmad=false",)}
-SOURCES = ("nlm_fwd", "nlm_bwd", "pipeline_fwd", "nlm_fwd_sym")
+SOURCES = ("nlm_fwd", "nlm_bwd", "pipeline_fwd")
 
 LAUNCHES: Dict[str, int] = {"nlm_gray_fwd": 0, "nlm_gray_bwd": 0,
-                            "pipeline_fwd": 0, "nlm_gray_fwd_sym": 0}
+                            "pipeline_fwd": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -39,15 +39,19 @@
 //      pixels: two weights and two float4 rgb reads per pixel.
 // Two barriers per pair.  Every 5-sum is an exact sum of its five terms in
 // the TPU kernel's order (rows first, then columns; no running sum that
-// subtracts), so each patch distance is bit for bit that of nlm_fwd_sym.cu:
+// subtracts), so each patch distance is exact where the TPU kernel's is:
 // at h = 0 a weight is exactly 1 (distance 0) or 0 and a residue would flip
 // it.  Only the order of the sum over offsets differs.  Plane
 // widths are template parameters (|dx| = 0..5), so no loop over a plane
 // divides by a runtime width.  Built without --use_fast_math (IEEE expf,
 // sqrtf and 1 / W).  One change of rounding: the weight is
 // exp(-s * (1 / hh)), 1 / hh formed once per block, where the plain version
-// and nlm_fwd_sym.cu divide s / hh; a division per weight cost 11 % of the
-// kernel's time on the H100, and U stays within 3e-7 of nlm_fwd_sym.cu's.
+// divides s / hh; a division per weight cost 11 % of the kernel's time on
+// the H100, and U stays within 3e-7 of the dividing version's.
+//
+// This is also the port of _nlm_kernel_sym (nlm.py:123, the same call with
+// sym=True): that kernel computes the same function with these 60 pairs,
+// and the wrapper's sym argument launches this kernel either way.
 
 #include <cuda_runtime.h>
 #include <stddef.h>

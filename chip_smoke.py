@@ -12,15 +12,21 @@ Phases, each printing one JSON line:
      the main path's shape and at an odd shape, with its time, the plain
      version's time and the card's bound for the same work: K1 and K2, also
      on flat 8 x 8 patches (exact zero distances, images at h = 0 and
-     1e-4) and on a [1,6,9,3] image smaller than the halo; K4
+     1e-4) and on a [1,6,9,3] image smaller than the halo, K1 with
+     ``sym=True`` (JAX's K3, served by K1) bit for bit equal to
+     ``sym=False`` in the same four cases and timed in turns with it; K4
      (the fused render pass) on the bench's 5-stage chain at [8,512,512,3]
-     with per-image parameters, a pointwise stack on exact 0/1, out-of-range,
-     grey and two-channel-tie pixels, and four sharpens interleaved with
-     pointwise stages at [2,37,53,3] and [1,2160,3840,3]; K3 (the symmetric
-     NLM forward) against the plain version and K1 in the same four cases,
-     timed in turns with K1,
-     then ``NLMGray(sym=True)`` forward and backward once (K3, then K2; the
-     launch counts of this run are the ``kernel`` path);
+     with per-image parameters, a pointwise stack on exact 0/1,
+     out-of-range, grey and two-channel-tie pixels, four sharpens
+     interleaved with pointwise stages at [2,37,53,3], [1,6,9,3] and
+     [1,2160,3840,3], and the pointwise stack at [1,2160,3840,3]; each
+     timed case twice: the kernel alone (its C entry on prepared arguments,
+     launched while the card still writes a 128 MB buffer, so that the
+     events bracket the kernel and it reads past a flushed L2) and the
+     call (``render_pipeline_fused``); one profiled call, whose only device
+     work must be K4; then ``NLMGray(sym=True)`` forward and backward once
+     (K1, then K2; the launch counts of this run are the ``kernel_sym``
+     path);
   4. serving: the port's serving path at full width, through the user entry
      points: ``api.load_adaptive_isp().process`` (Config() defaults, 5-step
      blend rollout) then ``api.load_detector().detect`` (full YOLOv3, decode,
@@ -43,7 +49,7 @@ Phases, each printing one JSON line:
   7. fused_grad: one ``fused_run`` gradient at batch 2 @ 128 px (image and
      every stage's parameters) against autograd of the plain chain;
 then the kernels line (each kernel's launches by path: serving, train_bf16,
-train_f32, render, kernel), the card's name and power limit, and as the last line
+train_f32, render, kernel_sym), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
 without a CUDA device or when any phase fails.
 """
@@ -148,7 +154,7 @@ def bound(nbytes: int, ops: int, sfu_ops: int):
 
 
 def nlm_bound(n_on: int, n: int, h: int, w: int):
-    """The gated NLM forward (K1 and K3 compute the same function) for these
+    """The gated NLM forward (K1, which also serves K3) for these
     inputs: each input read once, each output written once.  The weight of
     offset -d at p is that of d at p - d, so per gated-on pixel the least
     arithmetic is 60 weights of 13 operations (difference, square,
@@ -268,9 +274,11 @@ def phase_kernel_bwd():
 
 
 def phase_kernel():
+    """K1 against its plain version on the card, and ``sym=True`` (JAX's
+    K3, served by K1) bit for bit against ``sym=False``; in the main case
+    the two timed in turns (sym=False, sym=True, sym=True, sym=False)."""
     import torch
 
-    from adaptiveisp_tpu_torch.ops.cuda import build
     from adaptiveisp_tpu_torch.ops.cuda.nlm import nlm_gray_fwd
     from adaptiveisp_tpu_torch.ops.denoise import nlm_gray_uw
 
@@ -281,6 +289,7 @@ def phase_kernel():
         n, hgt, wid, _ = rgb.shape
         gate = torch.from_numpy(gate_np[:, None]).to(dev)
         u, w = nlm_gray_fwd(rgb, h, gate)
+        u3, w3 = nlm_gray_fwd(rgb, h, gate, sym=True)
         torch.cuda.synchronize()
         u_p, w_p = nlm_gray_uw(rgb, h)
         on = (gate != 0).reshape(n, 1, 1, 1)
@@ -292,21 +301,32 @@ def phase_kernel():
                       [on.expand_as(w)].max())
         off = ~on.reshape(n)
         off_zero = bool(not torch.any(u[off]) and not torch.any(w[off]))
-        ok = err_out <= 2e-5 and err_u <= 2e-5 and rel_w <= 1e-5 and off_zero
+        sym_equal = bool(torch.equal(u3, u) and torch.equal(w3, w))
+        ok = (err_out <= 2e-5 and err_u <= 2e-5 and rel_w <= 1e-5
+              and off_zero and sym_equal)
         rec = {"phase": "kernel", "kernel": "nlm_gray_fwd", "case": name,
                "shape": [n, hgt, wid, 3], "gate": gate_np.tolist(),
                "max_abs_err_out": err_out, "max_abs_err_u": err_u,
                "max_rel_err_w": rel_w, "gated_off_exact_zero": off_zero,
+               "sym_bit_equal": sym_equal,
                "tolerance": {"out_atol": 2e-5, "u_atol": 2e-5,
-                             "w_rtol": 1e-5}, "ok": ok}
+                             "w_rtol": 1e-5, "sym_vs_base": 0}, "ok": ok}
         if name == "main":
-            rec["ms"] = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate), 50)
-            rec["plain_ms"] = cuda_time_ms(lambda: nlm_gray_uw(rgb, h), 20)
+            turns = [cuda_time_ms(lambda sym=sym: nlm_gray_fwd(
+                rgb, h, gate, sym=sym), 50) for sym in (False, True, True,
+                                                         False)]
+            rec.update({"ms": float(np.median([turns[0], turns[3]])),
+                        "sym_ms": float(np.median(turns[1:3])),
+                        "ms_turns": {"sym_false": [turns[0], turns[3]],
+                                     "sym_true": turns[1:3]},
+                        "plain_ms": cuda_time_ms(
+                            lambda: nlm_gray_uw(rgb, h), 20)})
             rec.update(nlm_bound(int((gate_np != 0).sum()), n, hgt, wid))
         emit(rec)
         if not ok:
             raise AssertionError(f"nlm kernel disagrees with its plain "
-                                 f"version ({name})")
+                                 f"version or sym=True with sym=False "
+                                 f"({name})")
         result[name] = rec
     return result
 
@@ -329,12 +349,33 @@ PIPE_REPS = 50
 
 def pipeline_bound(names, n: int, h: int, w: int, n_params: int):
     """K4 for these inputs: the image read once and written once (24 bytes
-    a pixel) and the parameter table read once; per pixel the least
+    a pixel) and one parameter row per image read once; per pixel the least
     arithmetic of each stage (STAGE_OPS)."""
     px = n * h * w
     ops = sum(STAGE_OPS[nm][0] for nm in names)
     sfu = sum(STAGE_OPS[nm][1] for nm in names)
     return bound(px * 24 + n * n_params * 4, px * ops, px * sfu)
+
+
+def kernel_time_ms(launch, reps: int):
+    """Median device time of the kernel alone over reps launches: each
+    launch is queued while the card still writes a 128 MB buffer, so the
+    start event is stamped as that write ends and the kernel reads past a
+    flushed 50 MB L2, as a render of a fresh frame does."""
+    import torch
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    times = []
+    for i in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.fill_(float(i))
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def _stages_5(n, rng):
@@ -388,15 +429,13 @@ def _special_pixels(rng, n, h, w):
 
 def phase_kernel_pipeline():
     """K4 against its plain version (``render_pipeline(...,
-    allow_fused=False)``) on the card."""
+    allow_fused=False)``) on the card; the timed cases as the kernel alone
+    (:func:`kernel_time_ms`) and as the call; one profiled call."""
     import torch
 
     from adaptiveisp_tpu_torch.config import Config
     from adaptiveisp_tpu_torch.ops.bank import render_pipeline
-    from adaptiveisp_tpu_torch.ops.cuda.pipeline import (
-        pack_params,
-        render_pipeline_fused,
-    )
+    from adaptiveisp_tpu_torch.ops.cuda import pipeline as cp
 
     cfg = Config()
     dev = torch.device("cuda")
@@ -408,14 +447,19 @@ def phase_kernel_pipeline():
                               _pointwise_stack(2, rng)),
         "sharpen4_odd": (rng.uniform(-0.1, 1.1, (2, 37, 53, 3)).astype(
             np.float32), _sharpen4(2, rng)),
+        "sharpen4_tiny": (rng.uniform(-0.1, 1.1, (1, 6, 9, 3)).astype(
+            np.float32), _sharpen4(1, rng)),
         "sharpen4_4k": (rng.rand(1, *UHD, 3).astype(np.float32),
                         _sharpen4(1, rng)),
+        "pointwise_4k": (rng.uniform(-0.1, 1.1, (1, *UHD, 3)).astype(
+            np.float32), _pointwise_stack(1, rng)),
     }
+    timed = ("main", "sharpen4_4k", "pointwise_4k")
     result = {}
     for name, (img_np, stages_np) in cases.items():
         img = torch.from_numpy(img_np).to(dev)
         stages = [(nm, torch.from_numpy(p).to(dev)) for nm, p in stages_np]
-        got = render_pipeline_fused(cfg, img, stages)
+        got = cp.render_pipeline_fused(cfg, img, stages)
         torch.cuda.synchronize()
         want = render_pipeline(cfg, img, stages, allow_fused=False)
         diff = (got - want).abs()
@@ -429,82 +473,84 @@ def phase_kernel_pipeline():
                                     .max()),
                "outside_tolerance": over,
                "tolerance": {"rtol": 2e-4, "atol": 2e-5}, "ok": ok}
-        if name in ("main", "sharpen4_4k"):
-            rec["ms"] = cuda_time_ms(
-                lambda: render_pipeline_fused(cfg, img, stages), PIPE_REPS)
+        del got, want, diff
+        if name in timed:
+            args, _, rows = cp.launch_args(cfg, img, stages)
+            entry = cp._entry()
+            rec["kernel_ms"] = kernel_time_ms(lambda: entry(*args),
+                                              PIPE_REPS)
+            rec["call_ms"] = cuda_time_ms(
+                lambda: cp.render_pipeline_fused(cfg, img, stages),
+                PIPE_REPS)
+            rec["call_host_us"] = host_time_us(
+                lambda: cp.render_pipeline_fused(cfg, img, stages))
+            rec["ms"] = rec["kernel_ms"]
             rec["plain_ms"] = cuda_time_ms(
                 lambda: render_pipeline(cfg, img, stages, allow_fused=False),
                 20)
             n, h, w, _ = img.shape
             rec.update(pipeline_bound(names, n, h, w,
-                                      pack_params(cfg, img, stages).shape[1]))
+                                      cp.chain(cfg, names).n_params))
+            del args, rows
+        if name == "main":
+            rec["profile"] = profile_fused_call(cfg, img, stages)
+            ok = ok and rec["profile"]["only_k4"]
+            rec["ok"] = ok
         emit(rec)
         if not ok:
             raise AssertionError(f"render kernel disagrees with its plain "
-                                 f"version ({name})")
+                                 f"version or its call did other device "
+                                 f"work ({name})")
         result[name] = rec
     return result
 
 
-def phase_kernel_sym():
-    """K3 against its plain version (``nlm_gray_uw``) and against K1 on the
-    card; K3 and K1 timed in turns (K1, K3, K3, K1).  Then the K3 path:
-    ``NLMGray`` with ``sym=True`` forward and backward once (K3, then K2),
-    launch counts read around it, against autograd of the plain chain."""
+def host_time_us(call, reps: int = 200):
+    """Host time of one call (microseconds), from reps calls queued back to
+    back (their launches run behind them on the card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def profile_fused_call(cfg, img, stages):
+    """Device work of one ``render_pipeline_fused`` call (torch.profiler):
+    only K4 is expected (the output's allocation is no device work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaptiveisp_tpu_torch.ops.cuda.pipeline import render_pipeline_fused
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_pipeline_fused(cfg, img, stages)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return {"device_events": [{"name": k[1][:90], "us": k[0], "count": k[2]}
+                              for k in kernels],
+            "only_k4": (len(kernels) == 1 and kernels[0][2] == 1
+                        and "_kernel" in kernels[0][1])}
+
+
+def phase_kernel_sym_path():
+    """The path of JAX's K3 in the port: ``NLMGray`` with ``sym=True``
+    forward and backward once (K1, then K2), launch counts read around it,
+    against autograd of the plain chain."""
     import torch
 
     from adaptiveisp_tpu_torch.ops.cuda import build
-    from adaptiveisp_tpu_torch.ops.cuda.nlm import NLMGray, nlm_gray_fwd
-    from adaptiveisp_tpu_torch.ops.denoise import nlm_gray, nlm_gray_uw
+    from adaptiveisp_tpu_torch.ops.cuda.nlm import NLMGray
+    from adaptiveisp_tpu_torch.ops.denoise import nlm_gray
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(40)
-    result = {}
-    for name, rgb, h, gate_np in _nlm_cases(rng, dev, [1, 0]):
-        n, hgt, wid, _ = rgb.shape
-        gate = torch.from_numpy(gate_np[:, None]).to(dev)
-        u3, w3 = nlm_gray_fwd(rgb, h, gate, sym=True)
-        u1, w1 = nlm_gray_fwd(rgb, h, gate)
-        torch.cuda.synchronize()
-        u_p, w_p = nlm_gray_uw(rgb, h)
-        on = (gate != 0).reshape(n, 1, 1, 1)
-        u_p, w_p = torch.where(on, u_p, 0.0), torch.where(on, w_p, 0.0)
-        err_u = float((u3 - u_p).abs().max())
-        err_k1 = float((u3 - u1).abs().max())
-        rel_w = float(((w3 - w_p).abs() / w_p.abs().clamp_min(1e-30))
-                      [on.expand_as(w3)].max())
-        rel_w_k1 = float(((w3 - w1).abs() / w1.abs().clamp_min(1e-30))
-                         [on.expand_as(w3)].max())
-        off = ~on.reshape(n)
-        off_zero = bool(not torch.any(u3[off]) and not torch.any(w3[off]))
-        ok = (err_u <= 2e-5 and err_k1 <= 5e-6 and rel_w <= 1e-5
-              and off_zero)
-        rec = {"phase": "kernel", "kernel": "nlm_gray_fwd_sym", "case": name,
-               "shape": [n, hgt, wid, 3], "gate": gate_np.tolist(),
-               "max_abs_err_u": err_u, "max_abs_err_u_vs_k1": err_k1,
-               "max_rel_err_w": rel_w, "max_rel_err_w_vs_k1": rel_w_k1,
-               "gated_off_exact_zero": off_zero,
-               "tolerance": {"u_atol": 2e-5, "u_vs_k1_atol": 5e-6,
-                             "w_rtol": 1e-5}, "ok": ok}
-        if name == "main":
-            k1a = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate), 50)
-            k3a = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate, sym=True),
-                               50)
-            k3b = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate, sym=True),
-                               50)
-            k1b = cuda_time_ms(lambda: nlm_gray_fwd(rgb, h, gate), 50)
-            rec.update({"ms": float(np.median([k3a, k3b])),
-                        "ms_turns": {"k1": [k1a, k1b], "k3": [k3a, k3b]},
-                        "k1_ms": float(np.median([k1a, k1b])),
-                        "plain_ms": cuda_time_ms(
-                            lambda: nlm_gray_uw(rgb, h), 5)})
-            rec.update(nlm_bound(int((gate_np != 0).sum()), n, hgt, wid))
-        emit(rec)
-        if not ok:
-            raise AssertionError(f"symmetric nlm kernel disagrees ({name})")
-        result[name] = rec
-
-    # the K3 path: NLMGray(sym=True), forward and backward
     rgb, h = _nlm_inputs(rng, 2, 64, 96, dev)
     g = torch.from_numpy(rng.randn(2, 64, 96, 3).astype(np.float32)).to(dev)
     gate = torch.ones((2, 1), device=dev)
@@ -524,7 +570,7 @@ def phase_kernel_sym():
     err_dr = float((x.grad - xp.grad).abs().max())
     dh_ok = bool(torch.all((hk.grad - hp.grad).abs()
                            <= 1e-5 + 2e-4 * hp.grad.abs()))
-    ok = (launches == only(nlm_gray_fwd_sym=1, nlm_gray_bwd=1)
+    ok = (launches == only(nlm_gray_fwd=1, nlm_gray_bwd=1)
           and err_out <= 2e-5 and err_dr <= 2e-5 and dh_ok)
     emit({"phase": "kernel_sym_path", "shape": [2, 64, 96, 3],
           "launches": launches, "max_abs_err_out": err_out,
@@ -535,7 +581,7 @@ def phase_kernel_sym():
     if not ok:
         raise AssertionError("NLMGray(sym=True) disagrees with the plain "
                              "chain or launched the wrong kernels")
-    return result, launches
+    return launches
 
 
 RENDER_SCRIPT = [("exposure", [0.35]), ("improved_wb", [1.05, 0.95, 1.02]),
@@ -1043,7 +1089,7 @@ def main() -> int:
         kern = phase_kernel()
         kern_bwd = phase_kernel_bwd()
         kern_pipe = phase_kernel_pipeline()
-        kern_sym, sym_path = phase_kernel_sym()
+        sym_path = phase_kernel_sym_path()
         launches = phase_serving()
         trains = [phase_train(d) for d in ("bf16", "f32")]
         phase_train_vs_cpu()
@@ -1052,39 +1098,41 @@ def main() -> int:
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
-    by_path = {"serving": launches,
-               **{f"train_{t['detector_dtype']}": t["launches"]
-                  for t in trains},
-               "render": render, "kernel": sym_path}
+    main_paths = {"serving": launches,
+                  **{f"train_{t['detector_dtype']}": t["launches"]
+                     for t in trains},
+                  "render": render}
 
-    def entry(name, source, replaces, cases, err_key):
+    def entry(name, counter, source, replaces, cases, err_key, paths,
+              ms_key="ms"):
         main_case = cases["main"]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": sum(p[name] for p in by_path.values()),
-                "launches_by_path": {k: p[name] for k, p in by_path.items()},
+                "launches": sum(p[counter] for p in paths.values()),
+                "launches_by_path": {k: p[counter] for k, p in paths.items()},
                 "max_abs_err": max(cases[c][err_key] for c in cases),
-                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                "ms": main_case[ms_key], "plain_ms": main_case["plain_ms"],
                 "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"], "library_ms": None}
 
+    nlm_fwd = "adaptiveisp_tpu_torch/ops/cuda/csrc/nlm_fwd.cu"
     kernels = [
-        entry("nlm_gray_fwd",
-              "adaptiveisp_tpu_torch/ops/cuda/csrc/nlm_fwd.cu",
+        entry("nlm_gray_fwd", "nlm_gray_fwd", nlm_fwd,
               "adaptiveisp_tpu/ops/pallas/nlm.py:72", kern,
-              "max_abs_err_out"),
-        entry("nlm_gray_bwd",
+              "max_abs_err_out", main_paths),
+        entry("nlm_gray_bwd", "nlm_gray_bwd",
               "adaptiveisp_tpu_torch/ops/cuda/csrc/nlm_bwd.cu",
               "adaptiveisp_tpu/ops/pallas/nlm.py:378", kern_bwd,
-              "max_abs_err_drgb"),
-        entry("pipeline_fwd",
+              "max_abs_err_drgb", main_paths),
+        entry("pipeline_fwd", "pipeline_fwd",
               "adaptiveisp_tpu_torch/ops/cuda/csrc/pipeline_fwd.cu",
               "adaptiveisp_tpu/ops/pallas/pipeline.py:166", kern_pipe,
-              "max_abs_err"),
-        entry("nlm_gray_fwd_sym",
-              "adaptiveisp_tpu_torch/ops/cuda/csrc/nlm_fwd_sym.cu",
-              "adaptiveisp_tpu/ops/pallas/nlm.py:123", kern_sym,
-              "max_abs_err_u")]
+              "max_abs_err", main_paths),
+        # JAX's K3 (sym=True) is served by K1's kernel
+        entry("nlm_gray_fwd(sym=True)", "nlm_gray_fwd", nlm_fwd,
+              "adaptiveisp_tpu/ops/pallas/nlm.py:123", kern,
+              "max_abs_err_out", {"kernel_sym": sym_path}, ms_key="sym_ms")]
+    kernels[2]["call_ms"] = kern_pipe["main"]["call_ms"]
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
         print(f"chip_smoke: {unlaunched} launched on no path",

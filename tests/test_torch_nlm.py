@@ -7,7 +7,16 @@ interpret mode; the CUDA kernel is held against the plain version on the card
 use it, so the ``cuda`` cases also run on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_nlm.py
+
+The Pallas reference is built by this file run as a script, in its own
+interpreter with XLA's cheapest CPU compile options, started when the
+module starts so that it compiles while the module's other tests run.
 """
+
+import importlib.util
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -19,6 +28,9 @@ from adaptiveisp_tpu_torch.ops.cuda.nlm import nlm_gray_fwd
 
 # float32 sums in another order and another exp/sqrt: 2e-5 on [0, 1] pixels
 ATOL = 2e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHEAP_XLA = ("--xla_backend_optimization_level=0 "
+             "--xla_llvm_disable_expensive_passes=true")
 
 
 @pytest.fixture
@@ -45,6 +57,54 @@ def _inputs(seed, n, h, w, hs):
     return rgb, np.asarray(hs, np.float32).reshape(n, 1)
 
 
+def _pallas_case():
+    """(rgb, h, gate) of the Pallas reference: gate [1, 0, 0.3]."""
+    rgb, h = _inputs(23, 3, 16, 32, [0.4, 0.2, 0.6])
+    return rgb, h, np.array([[1.0], [0.0], [0.3]], np.float32)
+
+
+def _build_reference(path):
+    """The Pallas kernel's (U, W) of :func:`_pallas_case` in interpret mode,
+    saved to ``path`` (run as a script)."""
+    import jax.numpy as jnp
+
+    from adaptiveisp_tpu.ops.pallas import nlm as jnlm
+
+    u, w = jnlm._nlm_forward_uw(*[jnp.asarray(a) for a in _pallas_case()],
+                                interpret=True)
+    np.savez(path, u=np.asarray(u), w=np.asarray(w))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pallas_ref(tmp_path_factory):
+    """Starts :func:`_build_reference` in its own interpreter when the
+    module starts; yields a function that waits for it and returns
+    {"u": U, "w": W}.  Without JAX nothing starts."""
+    proc, path, done = None, None, {}
+    if importlib.util.find_spec("jax") is not None:
+        path = tmp_path_factory.mktemp("nlm_fwd_ref") / "ref.npz"
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(path)], cwd=REPO,
+            env=dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=CHEAP_XLA,
+                     PYTHONPATH=REPO),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def result():
+        if proc is None:
+            pytest.skip("needs jax")
+        if not done:
+            log = proc.communicate(timeout=900)[0]
+            assert proc.returncode == 0, log
+            with np.load(path) as z:
+                done.update(z)
+        return done
+
+    yield result
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 @pytest.mark.parametrize("shape,hs", [((2, 64, 64), [0.4, 0.08]),
                                       ((1, 37, 53), [0.25])])
 def test_nlm_gray_matches_jax(jx, shape, hs):
@@ -53,26 +113,6 @@ def test_nlm_gray_matches_jax(jx, shape, hs):
     want = np.asarray(jax.jit(jd.nlm_gray)(jnp.asarray(rgb), jnp.asarray(h)))
     got = td.nlm_gray(torch.from_numpy(rgb), torch.from_numpy(h)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
-
-
-def test_nlm_uw_matches_pallas_interpret_gated(jx):
-    """(U, W) of the plain version, masked by the gate, against the Pallas
-    kernel's own outputs (interpret mode) with gate [1, 0, 0.3]: gated-off
-    images are exactly zero in both."""
-    _, jnp, _, jnlm = jx
-    rgb, h = _inputs(23, 3, 16, 32, [0.4, 0.2, 0.6])
-    gate = np.array([[1.0], [0.0], [0.3]], np.float32)
-    u_j, w_j = jnlm._nlm_forward_uw(jnp.asarray(rgb), jnp.asarray(h),
-                                    jnp.asarray(gate), interpret=True)
-    u_t, w_t = td.nlm_gray_uw(torch.from_numpy(rgb), torch.from_numpy(h))
-    on = torch.from_numpy(gate != 0).reshape(3, 1, 1, 1)
-    u_t = torch.where(on, u_t, 0.0).numpy()
-    w_t = torch.where(on, w_t, 0.0).numpy()
-    np.testing.assert_allclose(u_t, np.asarray(u_j), atol=ATOL)
-    # W sums 121 weights in (0, 1]: relative tolerance
-    np.testing.assert_allclose(w_t, np.asarray(w_j), rtol=1e-5)
-    assert not np.any(np.asarray(u_j)[1]) and not np.any(u_t[1])
-    assert not np.any(np.asarray(w_j)[1]) and not np.any(w_t[1])
 
 
 def test_dispatch_routes_cpu_to_plain_version_with_gate(jx):
@@ -106,6 +146,23 @@ def test_kernel_wrapper_raises_on_cpu_tensor():
         nlm_gray_fwd(torch.from_numpy(rgb), torch.from_numpy(h), gate)
 
 
+def test_nlm_uw_matches_pallas_interpret_gated(pallas_ref):
+    """(U, W) of the plain version, masked by the gate, against the Pallas
+    kernel's own outputs (interpret mode) with gate [1, 0, 0.3]: gated-off
+    images are exactly zero in both."""
+    rgb, h, gate = _pallas_case()
+    ref = pallas_ref()
+    u_t, w_t = td.nlm_gray_uw(torch.from_numpy(rgb), torch.from_numpy(h))
+    on = torch.from_numpy(gate != 0).reshape(3, 1, 1, 1)
+    u_t = torch.where(on, u_t, 0.0).numpy()
+    w_t = torch.where(on, w_t, 0.0).numpy()
+    np.testing.assert_allclose(u_t, ref["u"], atol=ATOL)
+    # W sums 121 weights in (0, 1]: relative tolerance
+    np.testing.assert_allclose(w_t, ref["w"], rtol=1e-5)
+    assert not np.any(ref["u"][1]) and not np.any(u_t[1])
+    assert not np.any(ref["w"][1]) and not np.any(w_t[1])
+
+
 def _check_kernel(cuda_device, rgb, h, gate):
     n = rgb.shape[0]
     rgb_d = torch.from_numpy(rgb).to(cuda_device)
@@ -121,9 +178,10 @@ def _check_kernel(cuda_device, rgb, h, gate):
                                atol=0)
     off = ~on.reshape(n)
     assert not torch.any(u[off]) and not torch.any(w[off])
-    # K3, the symmetric forward, computes the same function
-    u3, _ = nlm_gray_fwd(rgb_d, h_d, gate_d, sym=True)
-    torch.testing.assert_close(u, u3, rtol=0, atol=5e-6)
+    # sym=True (JAX's K3, the same function) launches the same kernel
+    u3, w3 = nlm_gray_fwd(rgb_d, h_d, gate_d, sym=True)
+    torch.testing.assert_close(u3, u, rtol=0, atol=0)
+    torch.testing.assert_close(w3, w, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -150,3 +208,7 @@ def test_kernel_matches_plain_version_flat_patches_on_card(cuda_device):
     h = np.array([[0.0], [1e-4], [0.3], [0.5]], np.float32)
     gate = np.array([[1.0], [1.0], [0.5], [0.0]], np.float32)
     _check_kernel(cuda_device, rgb, h, gate)
+
+
+if __name__ == "__main__":
+    _build_reference(sys.argv[1])

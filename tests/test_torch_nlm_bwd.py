@@ -15,7 +15,10 @@ script in a fresh interpreter, the two started together, with XLA's
 cheapest CPU compile options (``CHEAP_XLA``).  Each is hundreds of small XLA
 compiles (one per roll shift of the eager chain) or one large interpret-mode
 kernel; the options about halve their compile time and change the values by
-float32 rounding only (6e-7 on dL/drgb, 4e-7 relative on dL/dhh).
+float32 rounding only (6e-7 on dL/drgb, 4e-7 relative on dL/dhh).  The
+Pallas backward takes its residuals (U, W) from the plain forward, which
+``tests/test_torch_nlm.py`` holds against the Pallas forward's own, so the
+interpreter compiles one kernel, not two.
 
 Tolerances: dL/drgb atol 2e-5 and dL/dhh rtol 2e-4, atol 1e-5, those of
 ``tests/test_pallas_nlm.py`` for the Pallas backward against autodiff
@@ -80,7 +83,8 @@ def _xla_case():
 
 def _build_reference(kind, path):
     """JAX's reference for one case, saved to ``path`` (run as a script):
-    ``pallas``: the Pallas forward and backward in interpret mode, with
+    ``pallas``: the Pallas backward in interpret mode at the plain
+    forward's (U, W) (zero for the gated-off image, as the kernel's), with
     v = the clip's VJP of the cotangent; ``xla``: ``jax.vjp`` of JAX's
     ``nlm_gray_dispatch`` (the XLA chain with the gate mask on the CPU)."""
     import jax
@@ -91,7 +95,10 @@ def _build_reference(kind, path):
 
         rgb, h, gate, g = _pallas_case()
         args = [jnp.asarray(a) for a in (rgb, h, gate)]
-        u, wsum = jnlm._nlm_forward_uw(*args, interpret=True)
+        u, wsum = td.nlm_gray_uw(torch.from_numpy(rgb), torch.from_numpy(h))
+        on = torch.from_numpy(gate != 0).reshape(-1, 1, 1, 1)
+        u, wsum = (jnp.asarray(torch.where(on, t, 0.0).numpy())
+                   for t in (u, wsum))
         _, clip_vjp = jax.vjp(lambda x: jnp.clip(x, 0.0, 1.0), u)
         v = clip_vjp(jnp.asarray(g))[0]
         dr, dh = jnlm._nlm_backward(*args, v, u, wsum, interpret=True)

@@ -7,18 +7,26 @@ interpret mode and against JAX's own ``bank.render_pipeline``: the four cases
 of ``tests/test_pallas_pipeline.py``, four interleaved sharpen stages, and a
 chain split by ``denoise``.  ``fused_run``'s autograd wiring runs with the
 plain chain standing in for K4, against ``jax.grad`` of JAX's stage chain.
-The plain NLM (``nlm_gray_uw``) is held against JAX's symmetric Pallas
-forward (K3's TPU kernel) in interpret mode.  The ``cuda`` cases hold K4 and
-K3 against their plain versions on the card and run without JAX:
+K4's call is checked without a card: its cached stage tables and the
+(pointer, stride) of each stage's parameters.  The plain NLM
+(``nlm_gray_uw``) is held against JAX's symmetric Pallas forward (K3's TPU
+kernel) in interpret mode; the port serves ``sym=True`` with K1.  The
+``cuda`` cases hold K4 against its plain version and ``sym=True`` against
+``sym=False`` on the card and run without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_pipeline.py
 
 Tolerances: rtol 2e-4, atol 2e-5 for the render, those of
 ``tests/test_pallas_pipeline.py`` for JAX's kernel against its chain (the
 fused pass drops ``render_fixed``'s lerp by a mask of ones and rounds
-gamma's power another way); 2e-5 for the NLM, 5e-6 between K3 and K1 (the
-same weights, summed in another order).
+gamma's power another way); 2e-5 for the NLM; ``sym=True`` equals
+``sym=False`` bit for bit (one kernel).
 """
+
+import importlib.util
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -32,14 +40,17 @@ from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
 from adaptiveisp_tpu_torch.ops.cuda import pipeline as cp
 
 RTOL, ATOL = 2e-4, 2e-5
-NLM_ATOL, SYM_ATOL = 2e-5, 5e-6
+NLM_ATOL = 2e-5
 CFG = Config()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHEAP_XLA = ("--xla_backend_optimization_level=0 "
+             "--xla_llvm_disable_expensive_passes=true")
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (the hand-written K3 and K4 kernels)")
+        pytest.skip("needs a CUDA GPU (the hand-written K1 and K4 kernels)")
     return torch.device("cuda")
 
 
@@ -52,6 +63,59 @@ def jx():
     from adaptiveisp_tpu.ops.pallas import nlm, pipeline
 
     return jax, JConfig(), bank, pipeline, nlm
+
+
+def _sym_case():
+    """(rgb, h, gate) of the symmetric Pallas reference: image 1 gated
+    off."""
+    rng = np.random.RandomState(31)
+    rgb = rng.uniform(-0.05, 1.05, (2, 8, 16, 3)).astype(np.float32)
+    return (rgb, np.array([[0.3], [0.6]], np.float32),
+            np.array([[1.0], [0.0]], np.float32))
+
+
+def _build_reference(path):
+    """JAX's symmetric Pallas forward's (U, W) of :func:`_sym_case` in
+    interpret mode, saved to ``path`` (run as a script)."""
+    import jax.numpy as jnp
+
+    from adaptiveisp_tpu.ops.pallas import nlm as jnlm
+
+    u, w = jnlm._nlm_forward_uw(*[jnp.asarray(a) for a in _sym_case()],
+                                interpret=True, sym=True)
+    np.savez(path, u=np.asarray(u), w=np.asarray(w))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def sym_ref(tmp_path_factory):
+    """Starts :func:`_build_reference` in its own interpreter, with XLA's
+    cheapest CPU compile options, when the module starts, so that it
+    compiles while the module's other tests run; yields a function that
+    waits for it and returns {"u": U, "w": W}.  Without JAX nothing
+    starts."""
+    proc, path, done = None, None, {}
+    if importlib.util.find_spec("jax") is not None:
+        path = tmp_path_factory.mktemp("nlm_sym_ref") / "ref.npz"
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(path)], cwd=REPO,
+            env=dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=CHEAP_XLA,
+                     PYTHONPATH=REPO),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def result():
+        if proc is None:
+            pytest.skip("needs jax")
+        if not done:
+            log = proc.communicate(timeout=900)[0]
+            assert proc.returncode == 0, log
+            with np.load(path) as z:
+                done.update(z)
+        return done
+
+    yield result
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def _full(n, *vals):
@@ -223,6 +287,26 @@ def test_fused_run_wiring_matches_jax_grad(jx, monkeypatch):
                                    err_msg=nm)
 
 
+def test_fused_run_without_gradient_calls_k4_directly(monkeypatch):
+    """With no gradient to take, ``fused_run`` launches K4 without the
+    autograd function (the plain chain standing in for K4)."""
+    calls = []
+
+    def plain(cfg, x, st):
+        calls.append([nm for nm, _ in st])
+        return tb.render_pipeline(cfg, x, st, allow_fused=False)
+
+    monkeypatch.setattr(cp, "render_pipeline_fused", plain)
+    img, stages = _case("5stage")
+    x = torch.from_numpy(img).requires_grad_(True)
+    with torch.no_grad():
+        out = cp.fused_run(CFG, x, _torch_stages(stages))
+    out2 = cp.fused_run(CFG, x.detach(), _torch_stages(stages))
+    assert out.grad_fn is None and out2.grad_fn is None
+    assert calls == [[nm for nm, _ in stages]] * 2
+    torch.testing.assert_close(out, out2, rtol=0, atol=0)
+
+
 def test_pipeline_wrapper_raises_on_cpu_tensor_and_bad_chains():
     img = torch.rand(1, 8, 8, 3)
     with pytest.raises(ValueError, match="CUDA"):
@@ -246,29 +330,60 @@ def test_pack_params_broadcasts_and_follows_curve_steps():
         [(0, 4), (4, 16)], 16)
 
 
-def test_sym_interpret_matches_plain_uw(jx):
-    """JAX's symmetric Pallas forward (interpret mode) against the port's
-    plain (U, W), gated: the same function as K1's."""
-    jax, _, _, _, jnlm = jx
-    jnp = jax.numpy
-    rng = np.random.RandomState(31)
-    rgb = rng.uniform(-0.05, 1.05, (2, 8, 16, 3)).astype(np.float32)
-    h = np.array([[0.3], [0.6]], np.float32)
-    gate = np.array([[1.0], [0.0]], np.float32)
-    u_j, w_j = jnlm._nlm_forward_uw(jnp.asarray(rgb), jnp.asarray(h),
-                                    jnp.asarray(gate), interpret=True,
-                                    sym=True)
-    u_t, w_t = td.nlm_gray_uw(torch.from_numpy(rgb), torch.from_numpy(h))
-    np.testing.assert_allclose(u_t[:1].numpy(), np.asarray(u_j)[:1],
-                               atol=NLM_ATOL)
-    np.testing.assert_allclose(w_t[:1].numpy(), np.asarray(w_j)[:1],
-                               rtol=1e-5)
-    assert not np.any(np.asarray(u_j)[1]) and not np.any(np.asarray(w_j)[1])
+def test_chain_table_is_cached_per_names_and_curve_steps():
+    """The plan and the ctypes stage table are built once per (stage names,
+    ``cfg.curve_steps``) and rebuilt for another ``curve_steps``."""
+    names = ["exposure", "tone", "color", "sharpen"]
+    ch = cp.chain(CFG, names)
+    assert cp.chain(CFG, list(names)) is ch
+    assert ch.counts == (1, 8, 24, 1) and ch.n_params == 34
+    assert list(ch.ops) == [cp.OPS.index(nm) for nm in names]
+    assert list(ch.offs) == [0, 1, 9, 33] and list(ch.cnts) == [1, 8, 24, 1]
+    ch4 = cp.chain(CFG.replace(curve_steps=4), names)
+    assert ch4 is not ch and ch4.counts == (1, 4, 12, 1)
+    assert list(ch4.offs) == [0, 1, 5, 17]
+    with pytest.raises(ValueError, match="sharpen"):
+        cp.chain(CFG, ["sharpen"] * (cp.HALO_ALLOC + 1))
+    with pytest.raises(ValueError, match="stages"):
+        cp.chain(CFG, ["exposure"] * (cp.MAX_STAGES + 1))
+    with pytest.raises(ValueError, match="parameters per image"):
+        cp.chain(CFG.replace(curve_steps=400), ["color"])
+
+
+def test_param_rows_read_in_place_or_made_contiguous_float32():
+    """Each stage's (tensor, per-image stride): a [1, n] row and a broadcast
+    [N, n] row are read where they lie with stride 0, an [N, n] tensor with
+    stride n; a non-contiguous or float64 parameter is made contiguous
+    float32; one on another device raises."""
+    n, cpu = 3, torch.device("cpu")
+    row = torch.tensor([[0.3]])
+    per_image = torch.rand(n, 3)
+    color = torch.rand(n, 8, 3)
+    bcast = torch.tensor([[1.1, 0.9, 1.0]]).expand(n, 3)
+    strided = torch.rand(3, n).t()                 # [n, 3], column stride n
+    wide = torch.rand(n, 1, dtype=torch.float64)
+    stages = [("exposure", row), ("improved_wb", per_image),
+              ("color", color), ("improved_wb", bcast),
+              ("improved_wb", strided), ("gamma", wide)]
+    rows, strides = cp.param_rows(stages, [1, 3, 24, 3, 3, 1], n, cpu)
+    assert strides == [0, 3, 24, 0, 3, 1]
+    for k in range(4):   # read in place
+        assert rows[k].data_ptr() == stages[k][1].data_ptr()
+    assert rows[4].is_contiguous() and rows[4].data_ptr() != strided.data_ptr()
+    torch.testing.assert_close(rows[4], strided, rtol=0, atol=0)
+    assert rows[5].dtype == torch.float32 and rows[5].is_contiguous()
+    torch.testing.assert_close(rows[5], wide.float(), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="expected"):
+        cp.param_rows([("exposure", torch.rand(2, 1))], [1], n, cpu)
+    with pytest.raises(ValueError, match="img on"):
+        cp.param_rows([("exposure", torch.rand(1, 1, device="meta"))], [1],
+                      n, cpu)
 
 
 def test_nlmgray_sym_forwards_to_k3_and_backward_to_k2(monkeypatch):
-    """``NLMGray`` with ``sym=True``: the forward asks for K3, the backward
-    is K2 as without it (plain versions standing in for the kernels)."""
+    """``NLMGray`` with ``sym=True``: the forward passes ``sym`` on to
+    ``nlm_gray_fwd`` (which serves JAX's K3 with K1), the backward is K2 as
+    without it (plain versions standing in for the kernels)."""
     seen = []
 
     def fwd(rgb, h, gate, sym=False):
@@ -306,14 +421,39 @@ def test_sym_wrapper_raises_on_cpu_tensor():
         cnlm.nlm_gray_fwd(rgb, torch.ones(1, 1), torch.ones(1, 1), sym=True)
 
 
+def test_sym_interpret_matches_plain_uw(sym_ref):
+    """JAX's symmetric Pallas forward (interpret mode) against the port's
+    plain (U, W), gated: the same function as K1's."""
+    rgb, h, _ = _sym_case()
+    ref = sym_ref()
+    u_t, w_t = td.nlm_gray_uw(torch.from_numpy(rgb), torch.from_numpy(h))
+    np.testing.assert_allclose(u_t[:1].numpy(), ref["u"][:1], atol=NLM_ATOL)
+    np.testing.assert_allclose(w_t[:1].numpy(), ref["w"][:1], rtol=1e-5)
+    assert not np.any(ref["u"][1]) and not np.any(ref["w"][1])
+
+
 def _close(got, want):
     bad = (got - want).abs() > ATOL + RTOL * want.abs()
     return int(bad.sum())
 
 
+def _pointwise_4k(rng):
+    """The nine pointwise stages on one 2160 x 3840 frame."""
+    img = rng.uniform(-0.1, 1.1, (1, 2160, 3840, 3)).astype(np.float32)
+    return img, [(nm, np.asarray(p, np.float32)) for nm, p in (
+        ("tone", rng.uniform(0.5, 2.0, (1, 8))),
+        ("color", rng.uniform(0.9, 1.1, (1, 8, 3))),
+        ("contrast", _full(1, 0.4)), ("wnb", _full(1, 0.3)),
+        ("saturation_plus", _full(1, 0.6)),
+        ("improved_wb", _full(1, 1.2, 0.9, 1.1)), ("gamma", _full(1, 0.7)),
+        ("exposure", _full(1, 0.2)),
+        ("ccm", np.eye(3).reshape(1, 9) + rng.uniform(-0.1, 0.1, (1, 9))))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["5stage_main", "pointwise_special",
-                                  "four_sharpen_odd"])
+                                  "four_sharpen_odd", "tiny",
+                                  "pointwise_4k"])
 def test_k4_matches_plain_chain_on_card(cuda_device, case):
     rng = np.random.RandomState(41)
     if case == "5stage_main":
@@ -322,6 +462,11 @@ def test_k4_matches_plain_chain_on_card(cuda_device, case):
     elif case == "four_sharpen_odd":
         img = rng.uniform(-0.1, 1.1, (2, 37, 53, 3)).astype(np.float32)
         stages = _sharpen4(2)
+    elif case == "tiny":   # smaller than a 16-byte group's row
+        img = rng.uniform(-0.1, 1.1, (1, 6, 9, 3)).astype(np.float32)
+        stages = _sharpen4(1)
+    elif case == "pointwise_4k":
+        img, stages = _pointwise_4k(rng)
     else:
         img = rng.uniform(-0.2, 1.2, (2, 33, 70, 3)).astype(np.float32)
         img[0, :4] = 0.0
@@ -361,7 +506,7 @@ def test_render_pipeline_launch_counts_on_card(cuda_device):
     got = tb.render_pipeline(CFG, x, stages)
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"nlm_gray_fwd": 1, "nlm_gray_bwd": 0,
-                              "pipeline_fwd": 2, "nlm_gray_fwd_sym": 0}
+                              "pipeline_fwd": 2}
     want = tb.render_pipeline(CFG, x.cpu(), [(nm, p.cpu())
                                              for nm, p in stages])
     assert _close(got.cpu(), want) == 0
@@ -388,7 +533,8 @@ def test_k3_matches_plain_and_k1_on_card(cuda_device, shape):
                                atol=NLM_ATOL)
     torch.testing.assert_close(w3, torch.where(on, w_p, 0.0), rtol=1e-5,
                                atol=0)
-    torch.testing.assert_close(u3, u1, rtol=0, atol=SYM_ATOL)
+    torch.testing.assert_close(u3, u1, rtol=0, atol=0)
+    torch.testing.assert_close(w3, w1, rtol=0, atol=0)
     off = ~on.reshape(n)
     assert not torch.any(u3[off]) and not torch.any(w3[off])
 
@@ -412,3 +558,7 @@ def test_fused_run_gradient_on_card(cuda_device):
         grads.append([x.grad] + [p.grad for p in ps])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+if __name__ == "__main__":
+    _build_reference(sys.argv[1])

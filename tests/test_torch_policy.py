@@ -27,21 +27,31 @@ CFG, JCFG = Config(), JConfig()
 
 @pytest.fixture(scope="module")
 def agents():
-    """(flax module, flax variables as numpy, port agent in eval mode)."""
+    """(flax module, flax variables as numpy, port agent in eval mode).
+    The variables are seeded numpy arrays over the shapes ``init``
+    declares (no compile): kernels normal with variance 1 / fan-in,
+    BatchNorm scales in [0.5, 1.5], other parameters normal with scale
+    0.1, and non-trivial BatchNorm statistics, so their conversion is
+    load-bearing."""
     jagent = JAgent(cfg=JCFG)
     x = jnp.zeros((1, 64, 64, 3), jnp.float32)
     z = jnp.zeros((1, JCFG.z_dim), jnp.float32)
     s = jnp.zeros((1, JCFG.num_state_dim), jnp.float32)
-    variables = jax.jit(lambda k: jagent.init(
-        {"params": k, "dropout": k}, x, z, s, 0.0, train=False))(
+    shapes = jax.eval_shape(lambda k: jagent.init(
+        {"params": k, "dropout": k}, x, z, s, 0.0, train=False),
         jax.random.PRNGKey(7))
-    variables = jax.tree_util.tree_map(np.asarray, variables)
-    # non-trivial BatchNorm statistics, so their conversion is load-bearing
     rng = np.random.RandomState(8)
-    stats = jax.tree_util.tree_map(
-        lambda a: (rng.uniform(0.5, 1.5, a.shape) if a.ndim else a
-                   ).astype(np.float32), variables["batch_stats"])
-    variables = {"params": variables["params"], "batch_stats": stats}
+
+    def fill(path, a):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['kernel']"):
+            fan_in = int(np.prod(a.shape[:-1]))
+            return (rng.randn(*a.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if "batch_stats" in name or name.endswith("['scale']"):
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        return (rng.randn(*a.shape) * 0.1).astype(np.float32)
+
+    variables = jax.tree_util.tree_map_with_path(fill, shapes)
     port = Agent(CFG)
     port.load_state_dict(agent_from_flax(variables["params"],
                                          variables["batch_stats"], CFG))

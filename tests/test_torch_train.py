@@ -90,27 +90,49 @@ def _stats(variables, seed):
     rng = np.random.RandomState(seed)
     return jax.tree_util.tree_map(
         lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32),
-        _np_tree(variables["batch_stats"]))
+        variables["batch_stats"])
+
+
+def _seeded_variables(module, args, seed, stats=True):
+    """Seeded numpy flax variables over the shapes ``module.init`` declares
+    (no compile): kernels normal with variance 1 / fan-in, BatchNorm
+    scales in [0.5, 1.5], other parameters normal with scale 0.1; with
+    ``stats`` non-trivial statistics (``_stats``), so their conversion and
+    update are load-bearing, else init's (mean 0, variance 1)."""
+    shapes = jax.eval_shape(lambda k: module.init(
+        {"params": k, "dropout": k}, *args, train=False),
+        jax.random.PRNGKey(0))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, s):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['kernel']"):
+            fan_in = int(np.prod(s.shape[:-1]))
+            return (rng.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name.endswith("['scale']"):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (rng.randn(*s.shape) * 0.1).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(fill, shapes["params"])
+    if stats:
+        return {"params": params, "batch_stats": _stats(shapes, seed + 1)}
+    return {"params": params, "batch_stats": jax.tree_util.tree_map_with_path(
+        lambda path, a: (np.zeros if jax.tree_util.keystr(path).endswith(
+            "['mean']") else np.ones)(a.shape, np.float32),
+        shapes["batch_stats"])}
 
 
 def _make_nets():
-    """JAX modules + variables (each init under jit: the eager init of the
-    render takes far longer here), and the port's twins loaded from them."""
+    """JAX modules and seeded numpy variables, and the port's twins loaded
+    from them."""
     jagent, jvalue = JAgent(cfg=JCFG), JValue(cfg=JCFG)
     jyolo = JDetectionModel(spec=MINI_SPEC)
     x = jnp.zeros((BATCH, IMG, IMG, 3), jnp.float32)
     z = jnp.zeros((BATCH, JCFG.z_dim), jnp.float32)
     s = jnp.zeros((BATCH, JCFG.num_state_dim), jnp.float32)
-    av = jax.jit(lambda k: jagent.init({"params": k, "dropout": k}, x, z, s,
-                                       0.0, train=False))(
-        jax.random.PRNGKey(0))
-    vv = jax.jit(lambda k: jvalue.init({"params": k}, x, s, train=False))(
-        jax.random.PRNGKey(1))
-    yv = jax.jit(lambda k: jyolo.init({"params": k}, x[:1], train=False))(
-        jax.random.PRNGKey(2))
-    av = {"params": _np_tree(av["params"]), "batch_stats": _stats(av, 3)}
-    vv = {"params": _np_tree(vv["params"]), "batch_stats": _stats(vv, 4)}
-    yv = _np_tree(yv)
+    av = _seeded_variables(jagent, (x, z, s, 0.0), 0)
+    vv = _seeded_variables(jvalue, (x, s), 10)
+    yv = _seeded_variables(jyolo, (x[:1],), 20, stats=False)
     agent, value, yolo = Agent(CFG), Value(CFG), DetectionModel(MINI_SPEC)
     agent.load_state_dict(agent_from_flax(av["params"], av["batch_stats"],
                                           CFG))
@@ -305,22 +327,53 @@ def test_optimizer_matches_optax(scale):
         joptim.exp_segment_schedule(3e-5, 10)(5), rel=1e-12)
 
 
-def _steps(nets, batch, tx_j, tx_t, n_steps, use_truncated=True):
+@pytest.fixture(scope="module")
+def jax_step(nets):
+    """JAX's ``make_train_step``, jitted once for the SGD and the Adam
+    tests: its optimizer is SGD at learning rate 1 where the traced ``sgd``
+    is set and ``make_optimizer(3e-5, 100)`` where not, and
+    ``max_brightness`` is traced too.  At max_brightness -1 no image is
+    truncated, so the q-value's factor (1 - truncated) is exactly 1 and the
+    step computes what ``use_truncated=False`` computes.  Returns (step,
+    the Adam transform that initialises its state)."""
+    (jagent, _), (jvalue, _), (jyolo, _), *_ = nets
+    adam = joptim.make_optimizer(3e-5, 100)
+
+    def switched(sgd):
+        def update(grads, opt, params=None):
+            upd, opt = adam.update(grads, opt, params)
+            return jax.tree_util.tree_map(
+                lambda g, u: jnp.where(sgd, -g, u), grads, upd), opt
+        return optax.GradientTransformation(adam.init, update)
+
+    @jax.jit
+    def step(state, yv, batch, key, progress, max_brightness, sgd):
+        tcfg = JTrainConfig(batch_size=BATCH, max_brightness=max_brightness)
+        tx = switched(sgd)
+        return j_make(jagent, jvalue, jyolo, JCFG, tcfg, ANCHORS, HYP, tx,
+                      tx)(state, yv, batch, key, progress)
+
+    return step, adam
+
+
+def _steps(nets, batch, jax_step, sgd, tx_t, n_steps, use_truncated=True):
     """Run both train steps n_steps times from the same weights on the same
-    batch; yields (JAX output, port output) after each."""
-    (jagent, av), (jvalue, vv), (jyolo, yv), agent, value, yolo = nets
-    tcfg_j = JTrainConfig(batch_size=BATCH, use_truncated=use_truncated)
+    batch; yields (JAX output, port output) after each.  ``sgd``: SGD at
+    learning rate 1 on both sides, else the Adam chain (JAX's) and ``tx_t``
+    (the port's)."""
+    (_, av), (_, vv), (_, yv), agent, value, yolo = nets
+    step_j, adam = jax_step
     tcfg_t = TrainConfig(batch_size=BATCH, use_truncated=use_truncated)
-    step_j = jax.jit(j_make(jagent, jvalue, jyolo, JCFG, tcfg_j, ANCHORS,
-                            HYP, tx_j, tx_j))
-    state_j = j_init(av, vv, tx_j, tx_j)
+    max_brightness = jnp.float32(tcfg_t.max_brightness if use_truncated
+                                 else -1.0)
+    state_j = j_init(av, vv, adam, adam)
     state_t = init_train_state(copy.deepcopy(agent), copy.deepcopy(value),
                                tx_t, tx_t)
     step_t = make_train_step(copy.deepcopy(yolo), CFG, tcfg_t, ANCHORS,
                              tloss.LossHyp())
     for _ in range(n_steps):
         out_j = step_j(state_j, yv, _j(*batch), jax.random.PRNGKey(9),
-                       PROGRESS)
+                       PROGRESS, max_brightness, jnp.asarray(sgd))
         out_t = step_t(state_t, _t(*batch), None, PROGRESS)
         state_j = out_j.state
         yield out_j, out_t
@@ -341,7 +394,7 @@ def _check_metrics(out_j, out_t, atol):
                                np.asarray(out_j.retouch), atol=1e-4)
 
 
-def test_train_step_sgd_gradients_match_jax(nets, batch):
+def test_train_step_sgd_gradients_match_jax(nets, batch, jax_step):
     """SGD at learning rate 1 on both sides: old - new is each network's
     gradient.  No truncation, so the critic's value of the retouched image
     also reaches the render.  Metrics to 1e-4 and gradients to 1e-4 of the
@@ -350,7 +403,7 @@ def test_train_step_sgd_gradients_match_jax(nets, batch):
     1e-5 of their largest (measured 2.2e-5), and a conv bias before
     BatchNorm has gradient 0 up to such noise."""
     (_, av), (_, vv), _, agent, value, _ = nets
-    out_j, out_t = next(_steps(nets, batch, optax.sgd(1.0),
+    out_j, out_t = next(_steps(nets, batch, jax_step, True,
                                lambda ps: torch.optim.SGD(ps, lr=1.0), 1,
                                use_truncated=False))
     _check_metrics(out_j, out_t, atol=1e-4)
@@ -385,13 +438,14 @@ def test_train_step_sgd_gradients_match_jax(nets, batch):
                          ["NLM.fc_filter.weight"]).numpy()).max()) > 0
 
 
-def test_train_step_adam_matches_jax_after_1_and_3_steps(nets, batch):
+def test_train_step_adam_matches_jax_after_1_and_3_steps(nets, batch,
+                                                        jax_step):
     """The real chain (clip at 1e-5, Adam, lr 3e-5 decaying): parameters
     to 3e-7 (1 % of one Adam step), statistics to 1e-4 and metrics to
     1e-4 after steps 1 and 3."""
-    tx_j = joptim.make_optimizer(3e-5, 100)
     tx_t = toptim.make_optimizer(3e-5, 100)
-    for i, (out_j, out_t) in enumerate(_steps(nets, batch, tx_j, tx_t, 3)):
+    for i, (out_j, out_t) in enumerate(_steps(nets, batch, jax_step, False,
+                                              tx_t, 3)):
         if i == 1:
             continue
         _check_metrics(out_j, out_t, atol=1e-4)

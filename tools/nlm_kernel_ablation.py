@@ -6,7 +6,7 @@
 Builds text-edited copies of ``csrc/nlm_fwd.cu`` (K1) and ``csrc/nlm_bwd.cu``
 (K2) into ``build/ablation/`` (one ``nvcc`` per copy, all at once), each
 with one part of the work removed, and times them in turns with the
-unedited kernel (and K3 beside K1) at the main NLM case of ``chip_smoke.py``
+unedited kernel at the main NLM case of ``chip_smoke.py``
 ([8,512,512,3], 5 of 8 images on): CUDA events, median of 30 launches, the
 order forward then backward.  The ablated results are wrong by design; only
 ``divide`` (the weight as s / hh, no hoisted reciprocal) computes the
@@ -131,7 +131,6 @@ def main() -> int:
             *ptr, u.data_ptr(), w.data_ptr(), n, hgt, wid, stream))
         runs[var]()
         outs[var] = u
-    runs["k3"] = lambda: cnlm.nlm_gray_fwd(rgb, h, gate, sym=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernel": "nlm_gray_fwd", "ms": in_turns(runs),
                       "divide_max_abs_diff": float(
