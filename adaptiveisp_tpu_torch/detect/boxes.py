@@ -1,11 +1,13 @@
-"""Box utilities for NMS and the detector loss (port of part of
-``adaptiveisp_tpu/detect/boxes.py``; the host-side numpy helpers come with
-evaluation and the ``Detections`` container)."""
+"""Box utilities (port of ``adaptiveisp_tpu/detect/boxes.py``): tensor
+versions for NMS and the detector loss, and the host-side NumPy helpers of
+the data layer and of mAP (``xywhn2xyxy``, ``xyxy2xywhn``, ``box_iou_np``,
+``scale_boxes``, ``clip_boxes``)."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from adaptiveisp_tpu_torch.ops.math import clip
@@ -14,6 +16,71 @@ from adaptiveisp_tpu_torch.ops.math import clip
 def xywh2xyxy(x):
     xy, wh = x[..., 0:2], x[..., 2:4]
     return torch.cat([xy - wh / 2, xy + wh / 2], dim=-1)
+
+
+def xyxy2xywh(x):
+    x1y1, x2y2 = x[..., 0:2], x[..., 2:4]
+    return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
+
+
+def xywhn2xyxy(x, w, h, padw=0.0, padh=0.0):
+    """Normalised xywh -> pixel xyxy, NumPy."""
+    y = np.copy(np.asarray(x))
+    y[..., 0] = w * (x[..., 0] - x[..., 2] / 2) + padw
+    y[..., 1] = h * (x[..., 1] - x[..., 3] / 2) + padh
+    y[..., 2] = w * (x[..., 0] + x[..., 2] / 2) + padw
+    y[..., 3] = h * (x[..., 1] + x[..., 3] / 2) + padh
+    return y
+
+
+def xyxy2xywhn(x, w, h, clip=False, eps=0.0):
+    """Pixel xyxy -> normalised xywh, NumPy; ``clip`` first clips the
+    corners to [0, w - eps] x [0, h - eps]."""
+    y = np.copy(np.asarray(x))
+    if clip:
+        y[..., [0, 2]] = y[..., [0, 2]].clip(0, w - eps)
+        y[..., [1, 3]] = y[..., [1, 3]].clip(0, h - eps)
+    out = np.copy(y)
+    out[..., 0] = ((y[..., 0] + y[..., 2]) / 2) / w
+    out[..., 1] = ((y[..., 1] + y[..., 3]) / 2) / h
+    out[..., 2] = (y[..., 2] - y[..., 0]) / w
+    out[..., 3] = (y[..., 3] - y[..., 1]) / h
+    return out
+
+
+def box_iou_np(box1, box2, eps=1e-7):
+    """Pairwise IoU of xyxy boxes, NumPy: [N, 4] x [M, 4] -> [N, M]."""
+    a1, a2 = box1[:, None, :2], box1[:, None, 2:4]
+    b1, b2 = box2[None, :, :2], box2[None, :, 2:4]
+    inter = np.clip(np.minimum(a2, b2) - np.maximum(a1, b1), 0, None).prod(2)
+    area1 = (a2 - a1).prod(2)
+    area2 = (b2 - b1).prod(2)
+    return inter / (area1 + area2 - inter + eps)
+
+
+def scale_boxes(img1_shape, boxes, img0_shape, ratio_pad=None):
+    """Rescale xyxy boxes from the letterboxed img1 to the original img0's
+    pixels (NumPy, float64), clipped to img0."""
+    boxes = np.array(boxes, dtype=np.float64, copy=True)
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0],
+                   img1_shape[1] / img0_shape[1])
+        pad = ((img1_shape[1] - img0_shape[1] * gain) / 2,
+               (img1_shape[0] - img0_shape[0] * gain) / 2)
+    else:
+        gain = ratio_pad[0][0]
+        pad = ratio_pad[1]
+    boxes[..., [0, 2]] -= pad[0]
+    boxes[..., [1, 3]] -= pad[1]
+    boxes[..., :4] /= gain
+    return clip_boxes(boxes, img0_shape)
+
+
+def clip_boxes(boxes, shape):
+    """Clip xyxy boxes in place to an (h, w) image; returns them."""
+    boxes[..., [0, 2]] = boxes[..., [0, 2]].clip(0, shape[1])
+    boxes[..., [1, 3]] = boxes[..., [1, 3]].clip(0, shape[0])
+    return boxes
 
 
 def box_iou(box1, box2, eps: float = 1e-7):

@@ -99,3 +99,18 @@ YOLOV3_TINY_SPEC: Dict[str, Any] = {
 
 def flatten_layers(spec: Dict[str, Any]) -> List[list]:
     return list(spec["backbone"]) + list(spec["head"])
+
+
+def resolve_spec(name_or_spec) -> Dict[str, Any]:
+    """A spec dict as is, or a named spec the port has (``yolov3``,
+    ``yolov3-tiny``, case-insensitive); any other name raises
+    ``NotImplementedError``, as an unported layer does."""
+    if isinstance(name_or_spec, dict):
+        return name_or_spec
+    named = {"yolov3": YOLOV3_SPEC, "yolov3-tiny": YOLOV3_TINY_SPEC}
+    spec = named.get(str(name_or_spec).lower())
+    if spec is None:
+        raise NotImplementedError(
+            f"detector spec {name_or_spec!r} is not ported; the port has "
+            f"{sorted(named)}")
+    return spec

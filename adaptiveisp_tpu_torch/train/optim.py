@@ -59,6 +59,19 @@ class ClipAdam(torch.optim.Optimizer):
             nu_hat = st["nu"] / (1.0 - b2 ** self.count)
             p.add_(mu_hat / (torch.sqrt(nu_hat) + eps) * -lr)
 
+    def state_dict(self):
+        """torch's optimizer state plus ``count``, the update counter the
+        learning-rate schedule reads, so a restored optimizer continues the
+        schedule where it stopped."""
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+
 
 def make_optimizer(base_lr: float, max_iter: int, clip_norm: float = 1e-5,
                    lr_decay: float = 0.1, segments: int = 3,

@@ -48,10 +48,35 @@ Phases, each printing one JSON line:
      at batch 8 @ 512, MPix/s beside the eager chain's;
   7. fused_grad: one ``fused_run`` gradient at batch 2 @ 128 px (image and
      every stage's parameters) against autograd of the plain chain;
-then the kernels line (each kernel's launches by path: serving, train_bf16,
-train_f32, render, kernel_sym), the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
-without a CUDA device or when any phase fails.
+  8. trainer: the RL trainer loop through ``train.trainer.Trainer`` at full
+     width: Config() roster (denoise included), a 128-slot device pool of
+     512 x 512 images with cached rewards, batch 8, the full YOLOv3 reward
+     detector in bf16, seeded random weights, on 64 seeded PNGs with 2-5
+     boxes each under ``build/train_smoke`` (a data YAML, source
+     ``normalize``, 8 validation images); 3 warm-up then 20 timed
+     iterations (checkpoints and validation trajectories every 10), each
+     split by CUDA events into sample, the step's phases and write-back,
+     launch counts read around the 20 (one K1 and one K2 an iteration, ten
+     K1 a validation); the automatic checkpoint at step 20 on disk; the
+     final state saved and resumed into a second Trainer, equal to it bit
+     for bit; then ``train_isp.main`` for 2 iterations with the device pool
+     and with the host pool;
+  9. trainer_vs_cpu: the same seeded Trainer (YOLOv3-tiny in f32, batch 2 @
+     128 px, dropout off, a 16-slot pool) on the card and on the CPU: 3
+     iterations, then a stopped trajectory and a diverged batch written
+     back into the pool (both refresh their slots), then a 4th iteration;
+     sampled slots, states, slot metadata and refresh counts equal,
+     history, pool images and cached losses to 1e-3;
+and in the serving phase the port's mAP: ``summarize`` of the card's and
+the CPU's detections of 2 served images (YOLOv3 with seeded weights that
+do not saturate its head, ``spread_detector_state``) against the same
+labels (the CPU chain's top detections, jittered), within 0.01 of each
+other.  Then the kernels
+line (each kernel's launches by path: serving, train_bf16, train_f32,
+render, trainer, train_isp, train_isp_host_pool, kernel_sym), the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.  Exits non-zero, with no result line, without a CUDA device or
+when any phase fails.
 """
 
 from __future__ import annotations
@@ -76,6 +101,8 @@ UHD = (2160, 3840)   # the render phase's large frame
 FORCED = [4, -1, -1, -1, -1]   # step 0 = denoise for every image
 REPS = 5
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAINER_WARMUP, TRAINER_ITERS = 3, 20
+TRAINER_IMAGES, TRAINER_VAL = 64, 8
 MAIN_GATE = np.array([1, 0, 0.3, 1, 0, 1, 1, 0], np.float32)
 
 
@@ -816,8 +843,80 @@ def phase_serving():
           "atol": 1e-4, "selected_equal": same_sel, "ok": ok})
     if not ok:
         raise AssertionError("step-0 images disagree with the CPU run")
+    phase_serving_map(cfg, isp, images[:2], nms)
     phase_profile(isp, det, images, nms, runs["forced_denoise"]["batch_ms"])
     return launches
+
+
+def spread_detector_state(spec, seed: int):
+    """Seeded YOLOv3 weights that keep activations of order 1 through the
+    depth (convolutions normal with variance 1 / fan-in, BatchNorm scales
+    and variances in [0.5, 1.5], other parameters normal with scale 0.1), as
+    the port's CPU tests seed theirs.  torch's default initialisation
+    saturates the full YOLOv3's head: its top 400 scores of an image take 3
+    distinct values, so which 300 boxes NMS keeps is a tie-break that
+    float32 noise decides, and mAP over them says nothing."""
+    import torch
+
+    from adaptiveisp_tpu_torch.detect.model import DetectionModel
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for k, v in DetectionModel(spec).state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            a = v.numpy()
+        elif v.ndim == 4:
+            a = rng.randn(*shape) / np.sqrt(np.prod(shape[1:]))
+        elif k.endswith(("running_var", "bn.weight")):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:
+            a = rng.randn(*shape) * 0.1
+        sd[k] = torch.from_numpy(np.asarray(a, v.numpy().dtype))
+    return sd
+
+
+def phase_serving_map(cfg, isp, images, nms):
+    """mAP of the served chain on the card against the port's CPU chain
+    (the same agent and noise, 2 images at 512 px, then YOLOv3 with
+    ``spread_detector_state`` weights on each): labels are the CPU chain's
+    top 4 detections of each image, jittered by up to 3 px, so mAP sits
+    well above 0 and drift between the chains shows."""
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.detect import metrics
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+
+    sd = spread_detector_state(YOLOV3_SPEC, 7)
+    det = api.load_detector(YOLOV3_SPEC, device="cuda", state_dict=sd)
+    det_cpu = api.load_detector(YOLOV3_SPEC, device="cpu", state_dict=sd)
+    isp_cpu = api.load_adaptive_isp(cfg, steps=STEPS, seed=0, device="cpu")
+    out_g = isp.process(images, seed=4)
+    out_c = isp_cpu.process(images.cpu(), seed=4)
+    dets_g, n_g = (a.cpu().numpy() for a in det.detect(out_g, **nms))
+    dets_c, n_c = (a.numpy() for a in det_cpu.detect(out_c, **nms))
+    iouv = np.linspace(0.5, 0.95, 10)
+    jitter = np.random.RandomState(6)
+    stats_g, stats_c = [], []
+    for b in range(images.shape[0]):
+        d_g, d_c = dets_g[b, :n_g[b]], dets_c[b, :n_c[b]]
+        top = d_c[np.argsort(-d_c[:, 4], kind="stable")[:4]]
+        labels = np.concatenate(
+            [top[:, 5:6], top[:, :4] + jitter.uniform(-3, 3, (4, 4))], 1)
+        for d, st in ((d_g, stats_g), (d_c, stats_c)):
+            st.append((metrics.process_batch(d, labels, iouv), d[:, 4],
+                       d[:, 5], labels[:, 0]))
+    m_g, m_c = metrics.summarize(stats_g), metrics.summarize(stats_c)
+    keys = ("precision", "recall", "map50", "map")
+    d50, dmap = (abs(m_g[k] - m_c[k]) for k in ("map50", "map"))
+    ok = m_c["map50"] > 0.3 and d50 < 0.01 and dmap < 0.01
+    emit({"phase": "serving_map", "images": int(images.shape[0]),
+          "nms": nms, "detections_card": n_g.tolist(),
+          "detections_cpu": n_c.tolist(),
+          "card": {k: m_g[k] for k in keys},
+          "cpu": {k: m_c[k] for k in keys},
+          "abs_diff": {"map50": d50, "map": dmap}, "atol": 0.01, "ok": ok})
+    if not ok:
+        raise AssertionError("mAP on the card disagrees with the CPU's")
 
 
 def device_kernels(prof):
@@ -1076,6 +1175,312 @@ def phase_train_vs_cpu():
         raise AssertionError("train step on the card disagrees with the CPU")
 
 
+def _trainer_data():
+    """64 seeded 512 x 512 PNGs with 2-5 YOLO boxes each, a list of 8 of
+    them for validation, and a data YAML (source ``normalize``, the LOD
+    layout) under build/train_smoke."""
+    import shutil
+    from pathlib import Path
+
+    import yaml
+    from PIL import Image
+
+    root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    rng = np.random.RandomState(60)
+    for i in range(TRAINER_IMAGES):
+        base = rng.rand(1, 1, 3) * 0.5 + 0.1
+        img = np.clip(base + rng.rand(SERVE_SIZE, SERVE_SIZE, 3) * 0.4, 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            root / "images" / f"{i}.png")
+        k = rng.randint(2, 6)
+        rows = np.concatenate([rng.randint(0, 80, (k, 1)),
+                               rng.uniform(0.25, 0.75, (k, 2)),
+                               rng.uniform(0.05, 0.4, (k, 2))], 1)
+        (root / "labels" / f"{i}.txt").write_text(
+            "".join(" ".join(f"{v:.6f}" for v in r) + "\n" for r in rows))
+    (root / "val.txt").write_text("".join(
+        f"images/{i}.png\n" for i in range(TRAINER_VAL)))
+    (root / "data.yaml").write_text(yaml.safe_dump({
+        "path": str(root), "train": "images", "val": "val.txt", "nc": 80,
+        "source": "normalize"}))
+    return root
+
+
+def _payload_diffs(got, want, path=""):
+    """Paths where two checkpoint payloads differ (tensors bit for bit)."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        ok = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+              and got.device == want.device and torch.equal(got, want))
+        return [] if ok else [path]
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [path]
+        return [d for k in want for d in _payload_diffs(got[k], want[k],
+                                                        f"{path}/{k}")]
+    return [] if got == want else [path]
+
+
+def phase_trainer(smi):
+    """The RL trainer loop at full width on the card (module docstring,
+    phase 8)."""
+    import contextlib
+    import os
+
+    import torch
+
+    from adaptiveisp_tpu_torch import train_isp
+    from adaptiveisp_tpu_torch.config import Config, TrainConfig
+    from adaptiveisp_tpu_torch.data import native
+    from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train import checkpoint as ckpt_lib
+    from adaptiveisp_tpu_torch.train.trainer import Trainer
+
+    root = _trainer_data()
+    data = check_dataset(str(root / "data.yaml"))
+    cfg = Config(save_model_freq=10, val_freq=10)
+    tcfg = TrainConfig(batch_size=SERVE_BATCH, imgsz=SERVE_SIZE)
+    kw = dict(data_source=data["source"], yolo_dtype="bfloat16",
+              device_replay=True, cached_reward=True, device="cuda")
+    names = ("sample", "agent", "detector", "critic", "backward",
+             "optimizer", "writeback", "validate", "end")
+    iters = []
+
+    def mark(name):
+        if name == "start":
+            iters.append({})
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        iters[-1][name] = (ev, time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, data["train"], val_path=data["val"],
+                 save_dir=str(root / "exp"), **kw)
+    resumed = None
+    try:
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pool_bytes = tr.device_replay.images.numel() * 4
+        tr.train(max_steps=TRAINER_WARMUP - 1)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        refreshes0 = tr.device_replay.refreshes
+        fresh0 = tr.device_replay.fresh_images
+        tr.train(max_steps=TRAINER_WARMUP + TRAINER_ITERS - 1, mark=mark)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        split = {k: [] for k in names}   # "end": the checkpoint
+        iter_ms = []
+        for ev in iters:
+            prev = "start"
+            for k in names:
+                split[k].append(ev[prev][0].elapsed_time(ev[k][0]))
+                prev = k
+            iter_ms.append((ev["end"][1] - ev["start"][1]) * 1e3)
+        med = float(np.median(iter_ms))
+        steps_ms = [sum(split[k][i] for k in names[1:6])
+                    for i in range(len(iters))]
+        hist = tr.history[TRAINER_WARMUP:]
+        finite = bool(np.isfinite([[h[k] for k in h] for h in hist]).all())
+        val_files = sorted(f for f in os.listdir(tr.image_dir)
+                           if f.endswith("_steps.png"))
+
+        # ---- the final state saved, then resumed into a second Trainer --
+        ckpt_step = ckpt_lib.latest_step(tr.ckpt_dir)   # the automatic one
+        final_dir = str(root / "exp" / "ckpt_final")
+        ckpt_lib.save(final_dir, tr.state, tr.state.step)
+        resumed = Trainer(cfg, tcfg, data["train"],
+                          save_dir=str(root / "exp_resumed"), log=False,
+                          **kw)
+        resumed.resume(final_dir)
+        diffs = _payload_diffs(ckpt_lib.payload(resumed.state),
+                               ckpt_lib.payload(tr.state))
+    finally:
+        tr.close()
+        if resumed is not None:
+            resumed.close()
+    n_val = len(val_files)
+    expected = only(nlm_gray_fwd=TRAINER_ITERS + 2 * 2 * STEPS,
+                    nlm_gray_bwd=TRAINER_ITERS)
+    rec = {"phase": "trainer", "nvidia_smi": smi,
+           "batch": SERVE_BATCH, "size": SERVE_SIZE, "detector": "yolov3",
+           "detector_dtype": "bf16", "roster": list(cfg.filters),
+           "pool_slots": cfg.replay_memory_size, "pool_bytes": pool_bytes,
+           "cached_reward": True, "train_images": TRAINER_IMAGES,
+           "val_images": TRAINER_VAL, "warmup": TRAINER_WARMUP,
+           "iterations": len(iters), "build_s": build_s,
+           "iteration_ms": med, "iteration_ms_mean": float(np.mean(iter_ms)),
+           "iteration_ms_all": iter_ms, "iterations_per_s": 1e3 / med,
+           "split_ms": {k: float(np.median(v)) for k, v in split.items()},
+           "split_ms_max": {k: float(np.max(v)) for k, v in split.items()},
+           "step_ms": float(np.median(steps_ms)),
+           "refreshes": tr.device_replay.refreshes - refreshes0,
+           "fresh_images_decoded": tr.device_replay.fresh_images - fresh0,
+           "divergence_count": tr.divergence_count,
+           "launches": launches, "expected_launches": expected,
+           "max_memory_allocated": peak, "preprocess": native.backend(),
+           "state_step": tr.state.step, "history_finite": finite,
+           "validation_strips": val_files,
+           "checkpoint_step": ckpt_step,
+           "resumed_step": resumed.state.step,
+           "resume_diffs": diffs[:10], "resume_bit_equal": not diffs}
+    emit(rec)
+    if launches != expected:
+        raise AssertionError(f"trainer launches {launches}, expected "
+                             f"{expected}")
+    if launches["nlm_gray_fwd"] == 0 or launches["nlm_gray_bwd"] == 0:
+        raise AssertionError("K1 or K2 not launched by the trainer")
+    if not finite or tr.state.step != TRAINER_WARMUP + TRAINER_ITERS:
+        raise AssertionError("trainer history not finite or step wrong")
+    if n_val != 4 or ckpt_step != 20 or diffs:
+        raise AssertionError(f"validation strips {val_files}, checkpoint "
+                             f"{ckpt_step}, resume diffs {diffs[:10]}")
+
+    # ---- the CLI: 2 iterations with the device pool, then the host pool
+    cli = {}
+    args = ["--task", "train", "--data_cfg", str(root / "data.yaml"),
+            "--batch_size", str(SERVE_BATCH), "--imgsz", str(SERVE_SIZE),
+            "--max_steps", "1", "--device", "cuda",
+            "--weights", str(root / "no_detector_weights.pt")]
+    cwd = os.getcwd()
+    for label, extra in (("train_isp", []),
+                         ("train_isp_host_pool", ["--no_device_replay"])):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        os.chdir(root)   # the CLI writes experiments/ under its cwd
+        try:
+            with contextlib.redirect_stderr(sys.stdout):
+                cli_tr = train_isp.main(args + extra)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        cli[label] = {"seconds": time.perf_counter() - t0,
+                      "launches": dict(build.LAUNCHES),
+                      "state_step": cli_tr.state.step,
+                      "device_pool": cli_tr.device_replay is not None,
+                      "history": cli_tr.history}
+    emit({"phase": "trainer_cli", **cli})
+    for label, r in cli.items():
+        if (r["state_step"] != 2
+                or r["launches"] != only(nlm_gray_fwd=2, nlm_gray_bwd=2)
+                or r["device_pool"] != (label == "train_isp")
+                or not np.isfinite([h["agent_loss"]
+                                    for h in r["history"]]).all()):
+            raise AssertionError(f"{label}: {r}")
+    return rec, {k: r["launches"] for k, r in cli.items()}
+
+
+def _force_refreshes(pool):
+    """A stopped trajectory and a diverged batch, written back into fixed
+    slots of a device pool: both refresh their slots from the feeder (one
+    upload, ``index_copy_``, the cached losses seeded on the device)."""
+    import torch
+
+    from adaptiveisp_tpu_torch.policy.states import (
+        STATE_STEP_DIM,
+        STATE_STOPPED_DIM,
+    )
+
+    idx = np.array([0, 5])
+    rows = torch.as_tensor(idx, device=pool.images.device)
+    new_states = pool.states[idx].copy()
+    new_states[0, STATE_STOPPED_DIM] = 1   # slot 0 stops: refreshed
+    new_states[1, STATE_STEP_DIM] = 0      # slot 5 is kept, written back
+    pool.replace(idx, pool.images.index_select(0, rows) * 0.5, new_states,
+                 retouch_loss=pool.loss_in.index_select(0, rows) + 1.0)
+    pool.replace(np.array([7, 12]), None, None, diverged=True)
+
+
+def phase_trainer_vs_cpu():
+    """The same seeded Trainer on the card and on the CPU (module
+    docstring, phase 9)."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config, TrainConfig
+    from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_TINY_SPEC
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train.trainer import Trainer
+
+    root = _trainer_data()
+    data = check_dataset(str(root / "data.yaml"))
+    cfg = Config(dropout_keep_prob=1.0, replay_memory_size=16)
+    tcfg = TrainConfig(batch_size=2, imgsz=128)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        build.reset_launches()
+        tr = Trainer(cfg, tcfg, data["train"],
+                     save_dir=str(root / f"exp_{device}"), log=False,
+                     yolo_spec=YOLOV3_TINY_SPEC, yolo_dtype="float32",
+                     device_replay=True, cached_reward=True,
+                     data_source=data["source"], device=device)
+        pool = tr.device_replay
+        seen, sample = [], pool.sample
+
+        def recorded(n, sample=sample, seen=seen):
+            out = sample(n)
+            seen.append((out[0].tolist(), out[2].tolist()))
+            return out
+
+        pool.sample = recorded
+        try:
+            tr.train(max_steps=2)
+            _force_refreshes(pool)
+            tr.train(max_steps=3)   # samples the refreshed pool
+        finally:
+            tr.close()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = {"seen": seen, "history": tr.history,
+                        "states": pool.states.tolist(),
+                        "images": pool.images.cpu(),
+                        "loss_in": pool.loss_in.cpu(),
+                        "meta": [(m["path"], m["label"].tolist(), m["shape"])
+                                 for m in pool.meta],
+                        "refreshes": pool.refreshes,
+                        "fresh_images": pool.fresh_images,
+                        "launches": dict(build.LAUNCHES)}
+    g, c = runs["cuda"], runs["cpu"]
+    # each metric's largest difference over its largest magnitude
+    rel = {k: max(abs(hg[k] - hc[k])
+                  for hg, hc in zip(g["history"], c["history"]))
+           / (max(abs(hc[k]) for hc in c["history"]) + 1e-6)
+           for k in c["history"][0]}
+    image_err = float((g["images"] - c["images"]).abs().max())
+    loss_rel = float((g["loss_in"] - c["loss_in"]).abs().max()
+                     / (c["loss_in"].abs().max() + 1e-6))
+    pool_ok = (g["meta"] == c["meta"] and image_err <= 1e-3
+               and loss_rel <= 1e-3 and g["refreshes"] == c["refreshes"] >= 3
+               and g["fresh_images"] == c["fresh_images"])
+    ok = (g["seen"] == c["seen"] and g["states"] == c["states"]
+          and len(g["history"]) == len(c["history"]) == 4
+          and max(rel.values()) <= 1e-3 and pool_ok
+          and g["launches"] == only(nlm_gray_fwd=4, nlm_gray_bwd=4))
+    emit({"phase": "trainer_vs_cpu", "batch": 2, "size": 128,
+          "detector": "yolov3-tiny", "iterations": 4,
+          "sampled_equal": g["seen"] == c["seen"],
+          "states_equal": g["states"] == c["states"],
+          "sampled_slots": [s[0] for s in g["seen"]],
+          "history_rel_err": rel, "rtol": 1e-3,
+          "refreshes": [g["refreshes"], c["refreshes"]],
+          "fresh_images": [g["fresh_images"], c["fresh_images"]],
+          "pool_meta_equal": g["meta"] == c["meta"],
+          "pool_image_max_abs_err": image_err, "pool_image_atol": 1e-3,
+          "pool_loss_rel_err": loss_rel, "pool_loss_rtol": 1e-3,
+          "launches_card": g["launches"], "ok": ok})
+    if not ok:
+        raise AssertionError("the trainer on the card disagrees with the "
+                             "CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -1095,13 +1500,15 @@ def main() -> int:
         phase_train_vs_cpu()
         render = phase_render()
         phase_fused_grad()
+        trainer, cli = phase_trainer(smi)
+        phase_trainer_vs_cpu()
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
     main_paths = {"serving": launches,
                   **{f"train_{t['detector_dtype']}": t["launches"]
                      for t in trains},
-                  "render": render}
+                  "render": render, "trainer": trainer["launches"], **cli}
 
     def entry(name, counter, source, replaces, cases, err_key, paths,
               ms_key="ms"):

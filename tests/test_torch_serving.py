@@ -3,7 +3,9 @@
 ``api`` path (``load_adaptive_isp(...).process_with_trace`` then
 ``load_detector(...).detect``) on the CPU, with the same flax weights and the
 same numpy noise: 2 images at 64 px, one forced pipeline that starts with
-``denoise`` and one free run.
+``denoise`` and one free run.  Then the composed mAP gate: each chain's
+detections scored by its own package's ``process_batch`` and ``summarize``
+against the same labels.
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 from adaptiveisp_tpu.config import Config as JConfig
 from adaptiveisp_tpu.detect.model import DetectionModel as JDetectionModel
 from adaptiveisp_tpu.detect.model import decode_predictions as jdecode
+from adaptiveisp_tpu.detect import metrics as jmetrics
 from adaptiveisp_tpu.detect.nms import non_max_suppression as jnms
 from adaptiveisp_tpu.eval.rollout import jit_rollout
 from adaptiveisp_tpu.policy.agent import Agent as JAgent
@@ -22,6 +25,7 @@ from adaptiveisp_tpu.policy.states import get_initial_states, get_noise
 from adaptiveisp_tpu_torch import api
 from adaptiveisp_tpu_torch.config import Config
 from adaptiveisp_tpu_torch.convert import agent_from_flax, yolo_from_flax
+from adaptiveisp_tpu_torch.detect import metrics as tmetrics
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_TINY_SPEC
 from adaptiveisp_tpu_torch.eval.rollout import rollout
 
@@ -141,3 +145,49 @@ def test_rollout_early_exit_matches_jax(chains):
                                atol=1e-4)
     np.testing.assert_allclose(res_t.image.numpy(), np.asarray(res_j.image),
                                atol=1e-4)
+
+
+def test_composed_rollout_detection_map_parity(chains):
+    """The port's counterpart of
+    ``tests/test_e2e_rollout_oracle.py::test_composed_rollout_detection_map_parity``:
+    JAX rollout -> detector -> NMS (conf 0.001, IoU 0.6, multi-label, as
+    validation runs it) -> JAX ``summarize`` against the port's chain ->
+    port ``summarize``, 4 free-run images.  Labels are JAX's top 4
+    detections of each image, jittered by up to 1.5 px, so mAP sits well
+    above 0 and drift between the chains shows: |dmAP50|, |dmAP| < 0.01."""
+    (roll, av, _, yv), (isp, det), _ = chains
+    jyolo = JDetectionModel(spec=YOLOV3_TINY_SPEC)
+    nms = dict(conf_thres=0.001, iou_thres=0.6, max_det=300,
+               multi_label=True)
+    jdetect = jax.jit(lambda v, x: jnms(jdecode(
+        jyolo.apply(v, x, train=False), YOLOV3_TINY_SPEC), **nms))
+    n, seed = 4, SEED + 7
+    images = np.random.RandomState(seed).uniform(
+        0.02, 0.98, (n, 64, 64, 3)).astype(np.float32)
+    rng = np.random.RandomState(seed)
+    noises = np.stack([get_noise(rng, n, JCFG.z_dim) for _ in range(STEPS)])
+    res_j = roll(av, jnp.asarray(images), jnp.asarray(noises),
+                 jnp.asarray(get_initial_states(n, JCFG.num_state_dim)),
+                 jnp.full((STEPS,), -1, jnp.int32))
+    res_t = isp.process_with_trace(images, seed=seed, record_steps=False)
+    np.testing.assert_array_equal(res_t.selected.numpy(),
+                                  np.asarray(res_j.selected))
+    det_j, n_j = (np.asarray(a) for a in jdetect(yv, res_j.image))
+    det_t, n_t = (a.numpy() for a in det.detect(res_t.image, **nms))
+    iouv = np.linspace(0.5, 0.95, 10)
+    jitter = np.random.RandomState(seed + 1)
+    stats_j, stats_t = [], []
+    for b in range(n):
+        d_j, d_t = det_j[b, :n_j[b]], det_t[b, :n_t[b]]
+        top = d_j[np.argsort(-d_j[:, 4], kind="stable")[:4]]
+        labels = np.concatenate(
+            [top[:, 5:6], top[:, :4] + jitter.uniform(-1.5, 1.5, (4, 4))],
+            1)
+        stats_j.append((jmetrics.process_batch(d_j, labels, iouv),
+                        d_j[:, 4], d_j[:, 5], labels[:, 0]))
+        stats_t.append((tmetrics.process_batch(d_t, labels, iouv),
+                        d_t[:, 4], d_t[:, 5], labels[:, 0]))
+    m_j, m_t = jmetrics.summarize(stats_j), tmetrics.summarize(stats_t)
+    assert m_j["map50"] > 0.3, "JAX mAP degenerate; the gate would be vacuous"
+    assert abs(m_t["map50"] - m_j["map50"]) < 0.01, (m_j, m_t)
+    assert abs(m_t["map"] - m_j["map"]) < 0.01, (m_j, m_t)
