@@ -4,10 +4,13 @@ the batch feeder of the replay pools (port of
 
 One dataset class with a ``source`` option:
   "raw"        sRGB image -> host unprocess -> synthetic RAW
+  "raw16"      "raw" through a uint16 sensor round-trip
   "normalize"  RAW-ish image, /255 only (the LOD layout)
   "rod"        .npy HDR, 99th-percentile normalisation
-The JAX dataset's image caches, train/val ``split``, ``high_res`` frames,
-``raw16`` source and the feeder's data-parallel sharding are not ported.
+and ``high_res``, which adds ``im_hr``: the max-side-capped frame before the
+letterbox, for rendering at full resolution.  ``split`` cuts one file list
+into train and validation views.  The JAX dataset's image caches and the
+feeder's data-parallel sharding are not ported.
 :class:`BatchFeeder` walks the dataset in shuffled epochs behind a
 :class:`~adaptiveisp_tpu_torch.data.prefetch.Prefetcher` thread.
 
@@ -48,11 +51,13 @@ class ISPDataset:
     """File-list dataset with letterbox + label transform parity."""
 
     def __init__(self, path: str, img_size: int = 512, source: str = "raw",
-                 add_noise: bool = False, brightness_range=None,
-                 noise_level=None, use_linear: bool = False,
+                 high_res: bool = False, add_noise: bool = False,
+                 brightness_range=None, noise_level=None,
+                 use_linear: bool = False, limit: int = -1,
                  train: bool = True, seed: int = 0):
         self.img_size = img_size
         self.source = source
+        self.high_res = high_res
         self.add_noise = add_noise
         self.brightness_range = brightness_range
         self.noise_level = noise_level
@@ -64,6 +69,8 @@ class ISPDataset:
         self._preload: dict = {}
 
         self.im_files = parse_image_list(path)
+        if limit > 0:
+            self.im_files = self.im_files[:limit]
         if not self.im_files:
             raise FileNotFoundError(f"No images found under {path}")
         label_fn = img2label_paths_rod if source == "rod" else img2label_paths
@@ -72,9 +79,11 @@ class ISPDataset:
             os.path.dirname(self.label_files[0]) or ".",
             f".adaptiveisp_labels_{len(self.im_files)}.cache")
         self.labels = load_labels(self.im_files, self.label_files, cache)
+        # positions -> file indices (a subset view after split())
+        self.indices = np.arange(len(self.im_files))
 
     def __len__(self):
-        return len(self.im_files)
+        return len(self.indices)
 
     # ---------------------------------------------------------------- #
     def _load_one(self, index: int):
@@ -87,11 +96,12 @@ class ISPDataset:
         return np.ascontiguousarray(img, np.float32), (h0, w0), img.shape[:2]
 
     def __getitem__(self, index: int):
+        index = int(self.indices[index])
         pre = self._preload.pop(index, None)   # decoded by get_batch's pool
         img, (h0, w0), (h, w) = pre if pre is not None else \
             self._load_one(index)
 
-        if self.source == "raw":
+        if self.source in ("raw", "raw16"):
             if not self.train:
                 # deterministic per-image seed from the filename stem
                 # (reference dataset.py:83-86); stable digest fallback,
@@ -110,6 +120,10 @@ class ISPDataset:
             img, _ = raw_np.unprocess_wo_mosaic(
                 img, self.add_noise, self.brightness_range,
                 self.noise_level, self.use_linear, rng=rng)
+            if self.source == "raw16":
+                # uint16 sensor round-trip (the reference's RAWV2 variant)
+                img = (np.round(img * 65535.0).astype(np.uint16)
+                       .astype(np.float32) / 65535.0)
         elif self.source == "rod":
             # HDR .npy: normalise by the 99th percentile
             # (reference dataset.py:1196-1219)
@@ -117,6 +131,7 @@ class ISPDataset:
             img = np.clip(img / max(p99, 1e-8), 0.0, 1.0).astype(np.float32)
         # "normalize": already /255 from the loader
 
+        full_res = img if self.high_res else None
         img, ratio, pad = letterbox(img, self.img_size, scaleup=False)
         shapes = (h0, w0), ((h / h0, w / w0), pad)
 
@@ -131,16 +146,19 @@ class ISPDataset:
         if len(labels):
             labels_out[:, 1:] = labels
 
-        return {
+        out = {
             "im": img.astype(np.float32),           # HWC [0,1]
             "label": labels_out,
             "path": self.im_files[index],
             "shape": shapes,
         }
+        if self.high_res:
+            out["im_hr"] = full_res.astype(np.float32)
+        return out
 
     # ---------------------------------------------------------------- #
     def get_batch(self, indices: List[int]):
-        uniq = list(dict.fromkeys(int(i) for i in indices))
+        uniq = list(dict.fromkeys(int(self.indices[i]) for i in indices))
         if len(uniq) > 1:
             from concurrent.futures import ThreadPoolExecutor
 
@@ -154,6 +172,20 @@ class ISPDataset:
         finally:
             self._preload = {}
         return collate(records)
+
+    def split(self, n_val: int, seed: int = 0):
+        """Random train/val split of one file list (the reference's
+        create_train_val_dataloader_real, dataloader.py:205-277): two views
+        sharing the image and label lists with disjoint sorted index sets;
+        the validation view is in eval mode."""
+        import copy
+
+        order = np.random.RandomState(seed).permutation(len(self.im_files))
+        train, val = copy.copy(self), copy.copy(self)
+        train.indices = np.sort(order[n_val:])
+        val.indices = np.sort(order[:n_val])
+        val.train = False
+        return train, val
 
 
 def collate(records):
@@ -169,7 +201,10 @@ def collate(records):
         labels.append(lb)
     paths = [r["path"] for r in records]
     shapes = [r["shape"] for r in records]
-    return {"im": ims, "label": labels, "path": paths, "shape": shapes}
+    out = {"im": ims, "label": labels, "path": paths, "shape": shapes}
+    if "im_hr" in records[0]:
+        out["im_hr"] = [r["im_hr"] for r in records]
+    return out
 
 
 class BatchFeeder:

@@ -11,7 +11,9 @@ Same semantics and defaults as the JAX version, batched over images:
     each block is resolved by a Jacobi fixpoint (exactly greedy, since the
     suppression graph only points to earlier rows), then its kept boxes
     suppress every later row.  An image stops once ``max_det`` boxes are
-    kept; later blocks score lower and can never reach its output.
+    kept; later blocks score lower and can never reach its output;
+  * ``merge=True`` (merge-NMS) replaces each kept box by the score-weighted
+    mean of the candidates overlapping it.
 
 Returns padded [N, max_det, 6] (xyxy, conf, cls) and a count per image.
 """
@@ -44,12 +46,19 @@ def _take(x, idx):
 def non_max_suppression(prediction, conf_thres: float = 0.25,
                         iou_thres: float = 0.45, max_det: int = 300,
                         max_nms: int = 4096, multi_label: bool = False,
-                        agnostic: bool = False, classes=None):
+                        agnostic: bool = False, classes=None,
+                        merge: bool = False):
     """prediction: [N, n_boxes, 5 + nc] decoded (xywh, obj, class probs).
 
     ``classes`` (sequence of class ids) keeps only those classes: in the
     multi-label path disallowed pairs score 0; in the single-label path a
     row whose best class is filtered is dropped.
+    ``merge``: each kept box becomes the score-weighted mean of every valid
+    candidate overlapping it above ``iou_thres`` (in class-offset space),
+    kept boxes that overlap nothing but themselves are dropped, and the
+    survivors are compacted in score order; an image merges only when it
+    has 1 < candidates < 3000 (the reference's cost guard, kept for
+    parity).
     Returns (detections [N, max_det, 6], n_valid [N] int32).
     """
     n_img, n_box, no = prediction.shape
@@ -130,8 +139,26 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
         sel_scores = F.pad(sel_scores, (0, max_det - kd), value=-1.0)
         sel = F.pad(sel, (0, max_det - kd))
     det_valid = sel_scores > conf_thres
+    out_boxes = _take(top_boxes, sel)
+    if merge:
+        n_cand = top_valid.sum(dim=1)
+        overlap = ((box_iou(_take(off_boxes, sel), off_boxes) > iou_thres)
+                   & top_valid[:, None, :])                 # [N, max_det, k]
+        w = overlap * top_scores[:, None, :]
+        merged = (w @ top_boxes) / torch.clamp(w.sum(2, keepdim=True),
+                                               min=1e-12)
+        apply = ((n_cand > 1) & (n_cand < 3000))[:, None]
+        out_boxes = torch.where(apply[..., None], merged, out_boxes)
+        det_valid = det_valid & (~apply | (overlap.sum(2) > 1))
+        # re-compact: drop the rows merging dropped, keep score order
+        sel_scores, re_idx = _top_k(torch.where(
+            det_valid, sel_scores, torch.full_like(sel_scores, -1.0)),
+            max_det)
+        out_boxes = _take(out_boxes, re_idx)
+        sel = torch.gather(sel, 1, re_idx)
+        det_valid = sel_scores > conf_thres
     out = torch.cat([
-        _take(top_boxes, sel),
+        out_boxes,
         torch.where(det_valid, sel_scores,
                     torch.zeros_like(sel_scores))[..., None],
         torch.gather(top_cls, 1, sel)[..., None],

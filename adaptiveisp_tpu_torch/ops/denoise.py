@@ -108,11 +108,14 @@ def nlm_gray_dispatch(rgb, h, gate=None):
     """Gated gray NLM: the CUDA kernels for a CUDA tensor, the plain version
     for a CPU tensor.
 
-    gate: optional [N] / [N, 1] blend weights.  Images whose gate is exactly
-    0 return zeros; the kernel skips their work, the plain version masks its
-    output, so both paths agree value for value.  Both are differentiable:
-    on the card through ``NLMGray`` (K1 forward, K2 backward), on the CPU by
-    autograd of the plain chain.
+    h: [N, 1], or [1, 1] for one strength shared by every image (a fixed
+    pipeline's parameter).  gate: optional [N] / [N, 1] blend weights.
+    Images whose gate is exactly 0 return zeros, and neither path computes
+    them: the kernel skips their work, the plain version runs on the other
+    images alone (each image's result depends on that image only).  Both
+    are differentiable: on the card through ``NLMGray`` (K1 forward, K2
+    backward; a shared strength gets the sum of the images' gradients), on
+    the CPU by autograd of the plain chain.
     """
     n = rgb.shape[0]
     gate = canon_gate(gate, n, rgb.device)
@@ -120,7 +123,11 @@ def nlm_gray_dispatch(rgb, h, gate=None):
         from adaptiveisp_tpu_torch.ops.cuda.nlm import NLMGray
 
         return NLMGray.apply(rgb.contiguous(),
-                             h.to(torch.float32).contiguous(), gate)
-    out = nlm_gray(rgb, h)
-    on = (gate != 0).reshape(n, 1, 1, 1)
-    return torch.where(on, out, torch.zeros_like(out))
+                             h.to(torch.float32).expand(n, 1).contiguous(),
+                             gate)
+    out = torch.zeros_like(rgb)
+    idx = (gate.reshape(n) != 0).nonzero()[:, 0]
+    if idx.numel():
+        out = out.index_copy(0, idx, nlm_gray(
+            rgb[idx], h if h.shape[0] == 1 else h[idx]))
+    return out

@@ -7,7 +7,9 @@
     actions are sampled by inverse CDF from external uniform noise;
   * the chosen filter renders the image, as a one-hot blend of all
     candidates (``render="blend"``) or as the one filter the whole batch
-    shares (``render="switch"``).
+    shares (``render="switch"``); a ``high_res`` frame, when given, is
+    rendered the same way with the same parameters (the policy reads only
+    the proxy ``x``).
 
 The state-dict keys are the original AdaptiveISP names:
 ``feature_extractor.layers.*``, ``action_selection.layers.*``, ``fc1``/
@@ -61,7 +63,8 @@ class Agent(nn.Module):
                 cfg.feature_extractor_dims, cfg.fc1_size, s.n_params))
 
     def forward(self, x, z, states, progress, train: bool = False,
-                selected_filter_id=None, render: str = "blend",
+                high_res=None, selected_filter_id=None,
+                render: str = "blend",
                 generator: torch.Generator | None = None):
         """Run one policy step.
 
@@ -72,10 +75,12 @@ class Agent(nn.Module):
         of both trunks, flax's ``dropout`` rng; needed in train mode when
         ``cfg.dropout_keep_prob < 1``).  ``selected_filter_id``: None, an
         int or a scalar int tensor forcing the action for the whole batch; a
-        negative value means the agent's own choice.
+        negative value means the agent's own choice.  ``high_res``: an
+        optional [N, H', W', 3] frame of any size, rendered with the
+        proxy's parameters, selection and masks.
 
-        Returns (out, new_states, surrogate, penalty, None, info); the fifth
-        slot is the JAX package's high-res render, not ported.
+        Returns (out, new_states, surrogate, penalty, high_res_out, info);
+        high_res_out is None without ``high_res``.
         """
         if train != self.training:
             raise ValueError(f"train={train} but the module is in "
@@ -119,11 +124,17 @@ class Agent(nn.Module):
         # ---- render ----
         mask_list = mask_params if cfg.masking else None
         if render == "switch":
-            out = bank.render_switch(cfg, x, squashed, sel[0], mask_list)
+            def draw(img):
+                return bank.render_switch(cfg, img, squashed, sel[0],
+                                          mask_list)
         elif render == "blend":
-            out = bank.render_blend(cfg, x, squashed, onehot, mask_list)
+            def draw(img):
+                return bank.render_blend(cfg, img, squashed, onehot,
+                                         mask_list)
         else:
             raise ValueError(f"unknown render mode {render!r}")
+        out = draw(x)
+        high_res_out = None if high_res is None else draw(high_res)
 
         # ---- new states ----
         step = states[:, STATE_STEP_DIM:STATE_STEP_DIM + 1]
@@ -171,4 +182,4 @@ class Agent(nn.Module):
             "entropy_penalty": entropy_penalty,
             "runtime_penalty": runtime_penalty,
         }
-        return out, new_states, surrogate, penalty, None, info
+        return out, new_states, surrogate, penalty, high_res_out, info

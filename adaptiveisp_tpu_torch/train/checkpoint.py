@@ -10,17 +10,23 @@ its learning-rate schedule where they were.
 ``save_weights_only`` writes the reference's weights-only layout
 ``{"iter", "agent_model", "value_model"}`` for inference; the values are the
 port modules' ``state_dict``, whose keys are the original AdaptiveISP names.
+``load_agent_weights`` reads an agent's weights for evaluation from any of
+the three: a checkpoint directory, the port's weights-only file, or the JAX
+package's weights-only pickle (flax trees of NumPy arrays, converted by
+``convert.agent_from_flax``).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import shutil
 import tempfile
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
+from adaptiveisp_tpu_torch.convert import agent_from_flax
 from adaptiveisp_tpu_torch.train.step import TrainState
 
 STATE_FILE = "state.pt"
@@ -96,3 +102,39 @@ def save_weights_only(path: str, state: TrainState) -> None:
 
 def load_weights_only(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """Unpickles dicts of NumPy arrays and nothing else: the JAX package's
+    weights-only file holds only those, and a pickle from elsewhere could
+    otherwise run code."""
+
+    ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
+               ("numpy.core.multiarray", "_reconstruct"),
+               ("numpy.core.multiarray", "scalar"),
+               ("numpy._core.multiarray", "_reconstruct"),
+               ("numpy._core.multiarray", "scalar")}
+
+    def find_class(self, module, name):
+        if (module, name) not in self.ALLOWED:
+            raise pickle.UnpicklingError(
+                f"{module}.{name} is not allowed in a weights file")
+        return super().find_class(module, name)
+
+
+def load_agent_weights(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """The agent ``state_dict`` stored at ``path``: a checkpoint directory
+    (its newest step), the JAX package's weights-only ``.pkl``/``.pickle``
+    (``adaptiveisp_tpu.train.checkpoint.save_weights_only``; ``cfg`` names
+    the roster of its heads), or the port's weights-only file."""
+    if os.path.isdir(path):
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found under {path!r}")
+        return torch.load(os.path.join(path, str(step), STATE_FILE),
+                          map_location="cpu", weights_only=True)["agent"]
+    if path.endswith((".pkl", ".pickle")):
+        with open(path, "rb") as f:
+            agent = _NumpyUnpickler(f).load()["agent_model"]
+        return agent_from_flax(agent["params"], agent["batch_stats"], cfg)
+    return load_weights_only(path)["agent_model"]

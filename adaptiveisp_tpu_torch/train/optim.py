@@ -8,11 +8,15 @@ lr(t) = lr0 * 0.1^(3 t / max_iter).  The arithmetic is optax's
 ``g * max_norm / norm`` when norm >= max_norm (``clip_grad_norm_`` divides by
 norm + 1e-6, a relative change of 1e-1 to 1e-3 at max_norm 1e-5), eps sits
 outside the square root, and update t (from 0) uses lr ``schedule(t)``.
+:func:`adam` and :func:`cosine_decay_schedule` are optax's ``adam`` and
+``cosine_decay_schedule`` in the same arithmetic (the fixed-pipeline
+optimiser's).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -25,10 +29,22 @@ def exp_segment_schedule(base_lr: float, max_iter: int, lr_decay: float = 0.1,
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0):
+    """optax's: init * ((1 - alpha) * (1 + cos(pi * t / T)) / 2 + alpha),
+    t capped at T = decay_steps."""
+    def schedule(step):
+        t = min(step, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
 class ClipAdam(torch.optim.Optimizer):
     """Clip by global norm over all of this optimizer's parameters, then
-    Adam, as optax.  A parameter without a gradient counts as a zero
-    gradient (optax sees every leaf)."""
+    Adam, as optax; ``clip_norm=None`` is Adam alone.  A parameter without
+    a gradient counts as a zero gradient (optax sees every leaf)."""
 
     def __init__(self, params, schedule, clip_norm: float = 1e-5,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -42,13 +58,15 @@ class ClipAdam(torch.optim.Optimizer):
         entries = [(group, p, torch.zeros_like(p) if p.grad is None
                     else p.grad)
                    for group in self.param_groups for p in group["params"]]
-        norm = torch.sqrt(sum(torch.sum(g * g) for _, _, g in entries))
-        clip = norm >= self.clip_norm
+        if self.clip_norm is not None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for _, _, g in entries))
+            clip = norm >= self.clip_norm
         lr = self.schedule(self.count)
         self.count += 1
         for group, p, g in entries:
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            g = torch.where(clip, g / norm * self.clip_norm, g)
+            if self.clip_norm is not None:
+                g = torch.where(clip, g / norm * self.clip_norm, g)
             st = self.state[p]
             if not st:
                 st["mu"] = torch.zeros_like(p)
@@ -82,3 +100,13 @@ def make_optimizer(base_lr: float, max_iter: int, clip_norm: float = 1e-5,
         ClipAdam, schedule=exp_segment_schedule(base_lr, max_iter, lr_decay,
                                                 segments),
         clip_norm=clip_norm, b1=b1, b2=b2, eps=1e-8)
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8):
+    """optax.adam: factory ``params -> ClipAdam`` without the clip;
+    ``learning_rate`` a float or a schedule ``update count -> lr``."""
+    schedule = (learning_rate if callable(learning_rate)
+                else lambda step: learning_rate)
+    return functools.partial(ClipAdam, schedule=schedule, clip_norm=None,
+                             b1=b1, b2=b2, eps=eps)

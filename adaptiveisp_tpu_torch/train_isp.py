@@ -2,11 +2,15 @@
 
     python -m adaptiveisp_tpu_torch.train_isp --task train_val \\
         --batch_size 8 --epochs 800 --data_cfg lod --save_path adaptiveisp
+    python -m adaptiveisp_tpu_torch.train_isp --task val \\
+        --model_weights experiments/lod-adaptiveisp/ckpt
 
 Trains the agent on ``--device`` (``cuda`` by default; ``cpu`` runs the
 kernels' plain versions).  Outputs go under ``experiments/<data_name>-
 <save_path>/`` of the working directory: logs, checkpoints
-(``ckpt/<step>/state.pt``) and validation trajectories.
+(``ckpt/<step>/state.pt``) and validation trajectories.  ``--task val``
+renders the validation set at full resolution with the agent of
+``--model_weights`` (``eval/hr_render.py``) under ``--val_save_path``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import sys
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--task", type=str, default="train_val",
-                   help="train or train_val (val is not ported yet)")
+                   help="train, train_val, val")
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--epochs", type=int, default=800)
     p.add_argument("--lr", type=float, default=3e-5)
@@ -46,6 +50,15 @@ def parse_args(argv=None):
     p.add_argument("--runtime_penalty_lambda", type=float, default=0.01)
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint directory to continue from")
+    p.add_argument("--model_weights", type=str, default=None,
+                   help="--task val: the agent's checkpoint directory or "
+                        "weights-only file")
+    p.add_argument("--val_save_path", type=str,
+                   default="experiments/adaptiveisp-val")
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--spatial_shard", type=int, default=1,
+                   help="spread each full-res frame's rows over N devices "
+                        "during --task val; only 1 is ported")
     p.add_argument("--cfg", type=str, default=None,
                    help="python module exporting `cfg` (a port Config), "
                         "e.g. adaptiveisp_tpu_torch.configs."
@@ -114,10 +127,7 @@ def load_yolo_weights(path, spec):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.task == "val":
-        raise SystemExit("--task val (the validator, run_validation and "
-                         "hr_render) is not ported yet: ROADMAP P10")
-    if args.task not in ("train", "train_val"):
+    if args.task not in ("train", "train_val", "val"):
         raise SystemExit(f"unknown task {args.task}")
     if args.dp:
         raise SystemExit(f"--dp {args.dp}: data parallelism is not ported "
@@ -140,6 +150,13 @@ def main(argv=None):
         runtime_penalty_lambda=args.runtime_penalty_lambda)
 
     data = check_dataset(args.data_cfg or args.data_name)
+    if args.task == "val":
+        from adaptiveisp_tpu_torch.eval.hr_render import run_hr_validation
+
+        return run_hr_validation(cfg, tcfg, data, args.model_weights,
+                                 args.val_save_path, steps=args.steps,
+                                 spatial_shard=args.spatial_shard,
+                                 device=args.device)
     spec = resolve_spec(args.yolo_spec) if args.yolo_spec else YOLOV3_SPEC
     yolo_sd = load_yolo_weights(args.weights, spec)
     loss_hyp = None

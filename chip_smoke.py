@@ -67,14 +67,45 @@ Phases, each printing one JSON line:
      back into the pool (both refresh their slots), then a 4th iteration;
      sampled slots, states, slot metadata and refresh counts equal,
      history, pool images and cached losses to 1e-3;
+ 10. validation: ``eval.validator.run_validation`` on the trainer data's 8
+     validation PNGs at the reference protocol (512 px, 5 steps, conf
+     0.001, IoU 0.6, max_det 300), Config() agent and full YOLOv3 with
+     ``spread_detector_state`` weights: batch 1 (switch render) free and
+     with denoise forced first (4 images), batch 8 (blend), and batch 1
+     with merge-NMS and TTA (2 images); each with its speed report, wall ms
+     per image and launch counts, and each against the same call on the
+     CPU (records
+     equal, mAP50 and mAP within 0.01); then the free runs at batch 1
+     and 8 with ``profile=True`` (each bucket of the speed report waits
+     for the card), the free batch-1 run with the host's reads of device
+     values (rollout, NMS) timed, and under the profiler (device kernel
+     time against wall time);
+ 11. val_cli: ``val_isp.main`` on the same data with the validation
+     phase's agent and detector from files, every artifact on but the
+     plots (no matplotlib there); records equal the validation phase's;
+ 12. hr_render: ``eval.hr_render.run_hr_validation`` on two seeded PNGs of
+     683 x 512 and 512 x 341 (full-resolution frames 384 x 512 and the odd
+     341 x 512) on the card and the CPU, frames before PNG quantisation
+     within 1e-4; then ``train_isp.main(["--task", "val", ...])``;
+ 13. fixed_pipeline: ``optimize_fixed_pipeline`` over exposure -> denoise
+     -> gamma -> sharpen, full YOLOv3, 12 steps at batch 8 @ 512 (K1 and K2
+     each step) with the step timed alone; the same optimisation at 512
+     px cut to 3 steps at batch 2 on the card and the CPU (history, raw
+     and squashed parameters within 1e-3); one ``make_fixed_pipeline_step``
+     on the 5-stage chain with the fused render (K4 forward, its gradient
+     through the plain chain) against ``allow_fused=False``;
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
 labels (the CPU chain's top detections, jittered), within 0.01 of each
-other.  Then the kernels
-line (each kernel's launches by path: serving, train_bf16, train_f32,
-render, trainer, train_isp, train_isp_host_pool, kernel_sym), the card's
-name and power limit, and as the last line ``{"ok": true, "device":
+other.  Then each phase's seconds, the kernels line (each kernel's
+launches by path, each path's counts set to 0 just before its run and
+read just after: serving, train_bf16, train_f32, render, trainer,
+train_isp, train_isp_host_pool, validation_b1_free, validation_b1_forced,
+validation_b8_blend, validation_b1_merge_tta, val_cli, hr_render,
+train_isp_val, fixed_pipeline, fixed_step_fused, kernel_sym; the CPU
+comparisons' card runs count on none), the card's name and power limit,
+and as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, with no result line, without a CUDA device or
 when any phase fails.
 """
@@ -82,12 +113,16 @@ when any phase fails.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
+
+STARTED = time.perf_counter()
 
 # NVIDIA H100 SXM data-sheet peaks at the full 700 W: HBM bytes/s and FP32
 # (non-tensor-core) operations/s.  SFU rate: 132 SMs x 16 special-function
@@ -1481,6 +1516,524 @@ def phase_trainer_vs_cpu():
                              "CPU's")
 
 
+VAL_PROTOCOL = dict(steps=STEPS, conf_thres=0.001, iou_thres=0.6,
+                    max_det=300)
+# the validation runs: the reference protocol at batch 1 (switch render)
+# free and with denoise forced first (4 images: the free run picks denoise
+# at nearly every step already), the blend at batch 8, and batch 1 with
+# merge-NMS and TTA (2 images: its CPU reference runs 3 detector passes an
+# image)
+VAL_RUNS = {"b1_free": dict(batch_size=1),
+            "b1_forced": dict(batch_size=1, pipeline=FORCED, max_images=4),
+            "b8_blend": dict(batch_size=SERVE_BATCH),
+            "b1_merge_tta": dict(batch_size=1, merge=True, augment=True,
+                                 max_images=2)}
+HR_SIZES = ((512, 683), (341, 512))   # (h, w): capped to 384 x 512, odd
+FIXED_CHAIN = ("exposure", "denoise", "gamma", "sharpen")
+FIXED_STEPS, FIXED_BATCHES = 12, 4
+# the optimiser held against the CPU at 512 px: 3 steps (one luminance
+# step, two of the full chain) at batch 2 (the shared denoise strength
+# sums two images' gradients)
+FIXED_CMP_BATCH, FIXED_CMP_STEPS = 2, 3
+FIVE_STAGES = ("exposure", "improved_wb", "ccm", "gamma", "sharpen")
+
+
+def _eval_models(device, det_sd):
+    """The seeded agent (Config() roster) and YOLOv3 with ``det_sd``."""
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+
+    cfg = Config()
+    return (cfg, api.load_adaptive_isp(cfg, seed=0, device=device).agent,
+            api.load_detector(YOLOV3_SPEC, device=device,
+                              state_dict=det_sd).model)
+
+
+def _labelled_val_set(cfg, agent, yolo, data):
+    """The trainer data's validation images under build/val_smoke, each
+    labelled with its top 4 detections of a free batch-1 validation run on
+    the card, jittered by up to 3 px (normalised coordinates clipped to
+    [0.001, 0.999]), so that mAP sits well above 0 and
+    drift between card and CPU shows.  Returns the data YAML's path."""
+    import shutil
+
+    import yaml
+
+    from adaptiveisp_tpu_torch.data.datasets import ISPDataset
+    from adaptiveisp_tpu_torch.eval.validator import run_validation
+
+    root = Path(__file__).resolve().parent / "build" / "val_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    ds = ISPDataset(data["val"], img_size=SERVE_SIZE, source="normalize",
+                    train=False)
+    run_validation(cfg, agent, yolo, ds, **VAL_PROTOCOL, batch_size=1,
+                   save_dir=str(root / "seed"), save_txt=True,
+                   save_conf=True)
+    jitter = np.random.RandomState(6)
+    for path in ds.im_files:
+        stem = Path(path).stem
+        shutil.copy(path, root / "images")
+        rows = np.loadtxt(root / "seed" / "labels" / f"{stem}.txt",
+                          ndmin=2)
+        top = rows[np.argsort(-rows[:, 5], kind="stable")[:4], :5]
+        top[:, 1:] = np.clip(top[:, 1:] + jitter.uniform(
+            -3, 3, (len(top), 4)) / SERVE_SIZE, 1e-3, 1 - 1e-3)
+        (root / "labels" / f"{stem}.txt").write_text("".join(
+            f"{int(r[0])} " + " ".join(f"{v:.6f}" for v in r[1:]) + "\n"
+            for r in top))
+    (root / "data.yaml").write_text(yaml.safe_dump({
+        "path": str(root), "train": "images", "val": "images", "nc": 80,
+        "source": "normalize"}))
+    return root / "data.yaml"
+
+
+def _host_reads(cfg, agent, yolo, ds):
+    """The free batch-1 run with the host's reads of device values timed:
+    each ``bool`` or ``int`` of a tensor inside the rollout (early exit,
+    the switch render's filter id) or inside NMS (its block loop) waits
+    for the card to finish the work queued before it.  Returns the reads'
+    count and blocked ms per image, by place, and the run's wall ms per
+    image."""
+    import torch
+
+    from adaptiveisp_tpu_torch.eval import validator
+
+    where = [None]
+    blocked = {"rollout": [0, 0.0], "nms": [0, 0.0]}
+
+    def timed(read):
+        def wrapper(t):
+            if where[0] is None:
+                return read(t)
+            t0 = time.perf_counter()
+            out = read(t)
+            blocked[where[0]][0] += 1
+            blocked[where[0]][1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    def scoped(name, fn):
+        def wrapper(*a, **k):
+            where[0] = name
+            try:
+                return fn(*a, **k)
+            finally:
+                where[0] = None
+        return wrapper
+
+    saved = (torch.Tensor.__bool__, torch.Tensor.__int__,
+             validator.rollout, validator.non_max_suppression)
+    torch.Tensor.__bool__ = timed(saved[0])
+    torch.Tensor.__int__ = timed(saved[1])
+    validator.rollout = scoped("rollout", saved[2])
+    validator.non_max_suppression = scoped("nms", saved[3])
+    try:
+        r = validator.run_validation(cfg, agent, yolo, ds, **VAL_PROTOCOL,
+                                     batch_size=1)
+    finally:
+        (torch.Tensor.__bool__, torch.Tensor.__int__, validator.rollout,
+         validator.non_max_suppression) = saved
+    n = len(ds)
+    wall = r["wall_ms_per_img"]
+    return {"wall_ms_per_img": wall, "speed": r["speed"],
+            **{f"{k}_reads_per_img": v[0] / n for k, v in blocked.items()},
+            **{f"{k}_blocked_ms_per_img": v[1] / n
+               for k, v in blocked.items()},
+            "blocked_share": sum(v[1] for v in blocked.values()) / n / wall}
+
+
+def phase_validation(smi):
+    """``run_validation`` at the reference protocol (512 px, 5 steps, conf
+    0.001, IoU 0.6, max_det 300), Config() agent and full YOLOv3 with
+    ``spread_detector_state`` weights, on the trainer data's 8 validation
+    PNGs labelled by ``_labelled_val_set``: each run of VAL_RUNS on the
+    card (launch counts read around it) and on the CPU, records equal,
+    mAP50 and mAP within 0.01.  Then one profiled batch-1 run: device
+    kernel time against its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
+    from adaptiveisp_tpu_torch.data.datasets import ISPDataset
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+    from adaptiveisp_tpu_torch.eval.validator import run_validation
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    det_sd = spread_detector_state(YOLOV3_SPEC, 7)
+    cfg, agent, yolo = _eval_models("cuda", det_sd)
+    _, agent_c, yolo_c = _eval_models("cpu", det_sd)
+    data_yaml = _labelled_val_set(
+        cfg, agent, yolo, check_dataset(str(_trainer_data() / "data.yaml")))
+    ds = ISPDataset(check_dataset(str(data_yaml))["val"], img_size=SERVE_SIZE,
+                    source="normalize", train=False)
+    runs, launches = {}, {}
+    for name, kw in VAL_RUNS.items():
+        build.reset_launches()
+        r = run_validation(cfg, agent, yolo, ds, **VAL_PROTOCOL, **kw)
+        torch.cuda.synchronize()
+        launches[name] = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        rc = run_validation(cfg, agent_c, yolo_c, ds, **VAL_PROTOCOL, **kw)
+        diff = {k: abs(r[k] - rc[k]) for k in ("map50", "map")}
+        runs[name] = {
+            "speed": r["speed"], "wall_ms_per_img": r["wall_ms_per_img"],
+            "launches": launches[name], "records": r["records"],
+            "records_equal": r["records"] == rc["records"],
+            "card": {k: r[k] for k in ("precision", "recall", "map50",
+                                       "map")},
+            "cpu": {k: rc[k] for k in ("map50", "map")}, "abs_diff": diff,
+            "cpu_seconds": time.perf_counter() - t0,
+            "ok": (r["records"] == rc["records"]
+                   and len(r["records"]) == kw.get("max_images", len(ds))
+                   and max(diff.values()) < 0.01)}
+    # the speed report's split with each bucket waiting for the card
+    synced = {f"b{b}": run_validation(cfg, agent, yolo, ds, **VAL_PROTOCOL,
+                                      batch_size=b, profile=True)["speed"]
+              for b in (1, SERVE_BATCH)}
+    reads = _host_reads(cfg, agent, yolo, ds)
+    # ---- the batch-1 run once more under the profiler: busy share ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rp = run_validation(cfg, agent, yolo, ds, **VAL_PROTOCOL,
+                            batch_size=1)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    emit({"phase": "validation", "nvidia_smi": smi, "images": len(ds),
+          "size": SERVE_SIZE, "detector": "yolov3", "protocol": VAL_PROTOCOL,
+          "runs": runs, "speed_synced": synced, "host_reads_b1": reads,
+          "profile_b1": {"wall_ms": wall_ms, "ms_per_img": wall_ms / len(ds),
+                         "device_kernel_ms": device_ms or None,
+                         "device_busy_share": (device_ms / wall_ms
+                                               if device_ms else None),
+                         "kernel_launches": sum(k[2] for k in kernels),
+                         "records_equal": rp["records"]
+                         == runs["b1_free"]["records"],
+                         "top_kernels": [{"name": k[1][:90],
+                                          "ms": k[0] / 1e3, "count": k[2]}
+                                         for k in kernels[:10]]}})
+    bad = [n for n, r in runs.items() if not r["ok"]]
+    if runs["b1_free"]["card"]["map50"] < 0.3:
+        bad.append("b1_free: mAP50 against its own labels under 0.3")
+    if bad:
+        raise AssertionError(f"validation on the card disagrees with the "
+                             f"CPU in {bad}")
+    if (launches["b1_forced"]["nlm_gray_fwd"]
+            < VAL_RUNS["b1_forced"]["max_images"]
+            or launches["b8_blend"]["nlm_gray_fwd"] == 0):
+        raise AssertionError(f"K1 not launched by the validator: {launches}")
+    return agent, det_sd, data_yaml, runs["b1_free"]["records"], launches
+
+
+def phase_val_cli(agent, det_sd, data_yaml, records):
+    """``val_isp.main`` on the same data, the validation phase's agent and
+    detector weights (written to files), with every artifact switched on
+    but the plots (the card's machine has no matplotlib): the artifacts
+    exist and the records equal the validation phase's."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from adaptiveisp_tpu_torch import val_isp
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    out = data_yaml.parent / "val_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir()
+    torch.save({"agent_model": agent.state_dict()}, out / "agent.pt")
+    torch.save(det_sd, out / "yolov3.pt")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = val_isp.main([
+            "--data", str(data_yaml), "--weights",
+            str(out / "yolov3.pt"), "--isp_weights", str(out / "agent.pt"),
+            "--imgsz", str(SERVE_SIZE), "--device", "cuda", "--save_image",
+            "--save_param", "--save_txt", "--save_json",
+            "--project", str(out), "--name", "exp"])
+    torch.cuda.synchronize()
+    exp = out / "exp"
+    counts = {d: len(list((exp / d).rglob("*.*")))
+              for d in ("img_results", "param_results", "labels")}
+    have = {f: (exp / f).exists() for f in ("records.txt",
+                                            "predictions.json")}
+    rec = {"phase": "val_cli", "seconds": time.perf_counter() - t0,
+           "launches": dict(build.LAUNCHES), "speed": res["speed"],
+           "wall_ms_per_img": res["wall_ms_per_img"],
+           "map50": res["map50"], "artifact_counts": counts,
+           "artifacts": have, "records_equal": res["records"] == records}
+    emit(rec)
+    if (not rec["records_equal"] or not all(have.values())
+            or counts != {"img_results": TRAINER_VAL * STEPS,
+                          "param_results": TRAINER_VAL,
+                          "labels": TRAINER_VAL}):
+        raise AssertionError(f"val_isp: {rec}")
+    return rec["launches"]
+
+
+def _hr_data(root):
+    """Two seeded non-square PNGs (683 x 512 and 512 x 341) with a box
+    each, and a data YAML, under root."""
+    import shutil
+
+    import yaml
+    from PIL import Image
+
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    rng = np.random.RandomState(61)
+    for i, (h, w) in enumerate(HR_SIZES):
+        img = np.clip(rng.rand(1, 1, 3) * 0.4 + rng.rand(h, w, 3) * 0.5, 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            root / "images" / f"{i}.png")
+        (root / "labels" / f"{i}.txt").write_text("0 0.5 0.5 0.2 0.2\n")
+    (root / "data.yaml").write_text(yaml.safe_dump({
+        "path": str(root), "train": "images", "val": "images", "nc": 80,
+        "source": "normalize"}))
+    return root
+
+
+def phase_hr_render(agent):
+    """``run_hr_validation`` on HR_SIZES frames (capped at 512: 384 x 512
+    and the odd 341 x 512), the validation phase's agent from a
+    weights-only file, on the card and on the CPU: per-step frames before
+    PNG quantisation within 1e-4, the same frames written (early stops);
+    then ``train_isp.main(["--task", "val", ...])`` on the card."""
+    import torch
+
+    from adaptiveisp_tpu_torch import train_isp
+    from adaptiveisp_tpu_torch.config import Config, TrainConfig
+    from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
+    from adaptiveisp_tpu_torch.eval import hr_render
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    root = _hr_data(Path(__file__).resolve().parent / "build" / "hr_smoke")
+    weights = root / "agent.pt"
+    torch.save({"agent_model": agent.state_dict()}, weights)
+    data = check_dataset(str(root / "data.yaml"))
+    cfg, tcfg = Config(), TrainConfig(batch_size=1, imgsz=SERVE_SIZE)
+    saved = hr_render.save_img
+    frames = {}
+
+    def capture(img, path):
+        frames[device][os.path.relpath(path, out_dir)] = np.array(img)
+        saved(img, path)
+
+    hr_render.save_img = capture
+    try:
+        for device in ("cuda", "cpu"):
+            frames[device] = {}
+            out_dir = root / f"out_{device}" / "val-images"
+            build.reset_launches()
+            t0 = time.perf_counter()
+            hr_render.run_hr_validation(cfg, tcfg, data, str(weights),
+                                        str(out_dir.parent), steps=STEPS,
+                                        device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = dict(build.LAUNCHES)
+    finally:
+        hr_render.save_img = saved
+    g, c = frames["cuda"], frames["cpu"]
+    keys_g, keys_c = sorted(g), sorted(c)
+    errs = {k: float(np.abs(g[k] - c[k]).max()) for k in keys_c if k in g}
+    shapes = sorted({tuple(v.shape) for k, v in g.items()
+                     if k.startswith("step-")})
+    want_shapes = sorted((round(h * SERVE_SIZE / max(h, w)),
+                          round(w * SERVE_SIZE / max(h, w)), 3)
+                         for h, w in HR_SIZES)
+    n_steps = sum(k.startswith("step-") for k in g)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train_isp.main([
+        "--task", "val", "--data_cfg", str(root / "data.yaml"),
+        "--model_weights", str(weights), "--imgsz", str(SERVE_SIZE),
+        "--device", "cuda", "--val_save_path", str(root / "train_isp_val")])
+    torch.cuda.synchronize()
+    cli = {"seconds": time.perf_counter() - t0,
+           "launches": dict(build.LAUNCHES),
+           "frames": sorted(str(p.relative_to(out_dir))
+                            for p in Path(out_dir).rglob("*.png"))}
+    ok = (keys_g == keys_c and len(errs) == len(keys_c)
+          and max(errs.values()) <= 1e-4 and launches["nlm_gray_fwd"] > 0
+          and shapes == want_shapes and cli["frames"] == keys_c)
+    emit({"phase": "hr_render", "frames_hw": [list(s[:2]) for s in shapes],
+          "images": len(HR_SIZES), "step_frames": n_steps,
+          "card_seconds": secs, "ms_per_image": secs * 1e3 / len(HR_SIZES),
+          "ms_per_step_frame": secs * 1e3 / max(n_steps, 1),
+          "launches": launches, "max_abs_err": max(errs.values()),
+          "atol": 1e-4, "frames_equal": keys_g == keys_c,
+          "train_isp_val": cli, "ok": ok})
+    if not ok:
+        raise AssertionError("hr_render on the card disagrees with the CPU "
+                             "or train_isp --task val wrote other frames")
+    return launches, cli["launches"]
+
+
+def _fixed_batches(device, n, size, seed):
+    """FIXED_BATCHES seeded dark (LOD-like) batches of n images with 2-5
+    boxes each: (images, targets, tmask) on device."""
+    import torch
+
+    from adaptiveisp_tpu_torch.detect.loss import pad_targets
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(FIXED_BATCHES):
+        imgs = (rng.rand(n, size, size, 3) * 0.15).astype(np.float32)
+        labels = []
+        for _ in range(n):
+            k = rng.randint(2, 6)
+            labels.append(np.concatenate(
+                [rng.randint(0, 80, (k, 1)), rng.uniform(0.25, 0.75, (k, 2)),
+                 rng.uniform(0.05, 0.4, (k, 2))], 1))
+        out.append(tuple(torch.from_numpy(a).to(device) for a in
+                         (imgs, *pad_targets(labels, 64))))
+    return out
+
+
+def _fixed_run(device, det_sd, n, size, steps):
+    """optimize_fixed_pipeline over FIXED_CHAIN with the full YOLOv3
+    (``det_sd``) on ``device``, launch counts read around it: (squashed,
+    raw, history, seconds, launches, detector, batches)."""
+    import contextlib
+
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.detect.model import anchors_in_grid_units
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train.fixed_pipeline import (
+        optimize_fixed_pipeline,
+    )
+    from adaptiveisp_tpu_torch.train.trainer import imgsz_hyp
+
+    yolo = api.load_detector(YOLOV3_SPEC, device=device,
+                             state_dict=det_sd).model
+    batches = _fixed_batches(api.resolve_device(device), n, size, 80)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = optimize_fixed_pipeline(
+            Config(), FIXED_CHAIN, yolo, anchors_in_grid_units(YOLOV3_SPEC),
+            batches, hyp=imgsz_hyp(size), lr=3e-2, steps=steps)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (*out, time.perf_counter() - t0, dict(build.LAUNCHES), yolo,
+            batches)
+
+
+def _rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
+
+
+def phase_fixed_pipeline(smi, det_sd):
+    """The fixed-pipeline optimiser (module docstring, phase 13)."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.detect.model import anchors_in_grid_units
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train.fixed_pipeline import (
+        init_raw_params,
+        make_fixed_pipeline_step,
+    )
+    from adaptiveisp_tpu_torch.train.optim import adam
+    from adaptiveisp_tpu_torch.train.trainer import imgsz_hyp
+
+    # ---- the main path: batch 8 @ 512 on the card ----
+    stages, raw, hist, secs, launches, yolo, batches = _fixed_run(
+        "cuda", det_sd, SERVE_BATCH, SERVE_SIZE, FIXED_STEPS)
+    cfg, anchors, hyp = (Config(), anchors_in_grid_units(YOLOV3_SPEC),
+                         imgsz_hyp(SERVE_SIZE))
+    step, _ = make_fixed_pipeline_step(cfg, FIXED_CHAIN, yolo, anchors, hyp,
+                                       allow_fused=False)
+    dev = batches[0][0].device
+    r = init_raw_params(cfg, FIXED_CHAIN, device=dev)
+    opt = adam(3e-2)(list(r.values()))
+    step_ms = cuda_time_ms(lambda: step(r, opt, *batches[0]), REPS)
+
+    # ---- card against the CPU: the same optimisation at 512 px, cut to
+    # FIXED_CMP_STEPS steps at batch FIXED_CMP_BATCH ----
+    cmp = {d: _fixed_run(d, det_sd, FIXED_CMP_BATCH, SERVE_SIZE,
+                         FIXED_CMP_STEPS) for d in ("cuda", "cpu")}
+    g, c = cmp["cuda"], cmp["cpu"]
+    hist_rel = _rel_err(g[2], c[2])
+    raw_err = max(float((g[1][k].cpu() - c[1][k]).abs().max())
+                  for k in c[1])
+    # how far the compared run moved its parameters (the check's scale)
+    init = init_raw_params(cfg, FIXED_CHAIN)
+    raw_moved = max(float((v - init[k]).abs().max()) for k, v in c[1].items())
+    sq_err = max(float((a.cpu() - b).abs().max())
+                 for (_, a), (_, b) in zip(g[0], c[0]))
+
+    # ---- one step on the 5-stage chain: the fused render (K4 forward,
+    # its gradient through the plain chain) against allow_fused=False ----
+    rng = np.random.RandomState(81)
+    raw0 = {k: v + torch.from_numpy(rng.normal(0, 0.3, v.shape).astype(
+        np.float32)).to(dev) for k, v in init_raw_params(
+        cfg, FIVE_STAGES, device=dev).items()}
+    fused = {}
+    for allow in (True, False):
+        rr = {k: v.clone() for k, v in raw0.items()}
+        st, _ = make_fixed_pipeline_step(cfg, FIVE_STAGES, yolo, anchors,
+                                         hyp, allow_fused=allow)
+        o = adam(3e-2)(list(rr.values()))
+        build.reset_launches()
+        loss = float(st(rr, o, *batches[1]))
+        torch.cuda.synchronize()
+        fused[allow] = (loss, {k: v.detach().cpu() for k, v in rr.items()},
+                        dict(build.LAUNCHES))
+    f_loss_rel = abs(fused[True][0] - fused[False][0]) / abs(fused[False][0])
+    f_raw_err = max(float((fused[True][1][k] - fused[False][1][k]).abs()
+                          .max()) for k in raw0)
+    ok = (launches["nlm_gray_bwd"] >= FIXED_STEPS
+          and launches["nlm_gray_fwd"] >= FIXED_STEPS
+          and np.isfinite(hist).all() and hist_rel <= 1e-3
+          and raw_err <= 1e-3 and sq_err <= 1e-3
+          and g[4]["nlm_gray_bwd"] >= FIXED_CMP_STEPS
+          and f_loss_rel <= 1e-5 and f_raw_err <= 1e-4
+          and fused[True][2]["pipeline_fwd"] == 1
+          and fused[False][2]["pipeline_fwd"] == 0)
+    emit({"phase": "fixed_pipeline", "nvidia_smi": smi,
+          "chain": list(FIXED_CHAIN), "batch": SERVE_BATCH,
+          "size": SERVE_SIZE, "detector": "yolov3", "steps": FIXED_STEPS,
+          "seconds": secs, "ms_per_step_with_evals": secs * 1e3 / FIXED_STEPS,
+          "step_ms": step_ms, "history": hist, "launches": launches,
+          "squashed": {n: p.cpu().reshape(-1).tolist() for n, p in stages},
+          "vs_cpu": {"batch": FIXED_CMP_BATCH, "size": SERVE_SIZE,
+                     "steps": FIXED_CMP_STEPS, "history": c[2],
+                     "history_rel_err": hist_rel,
+                     "raw_max_abs_err": raw_err, "raw_moved": raw_moved,
+                     "squashed_max_abs_err": sq_err, "tol": 1e-3,
+                     "card_seconds": g[3], "cpu_seconds": c[3],
+                     "launches_card": g[4]},
+          "fused_step": {"chain": list(FIVE_STAGES),
+                         "loss": [fused[True][0], fused[False][0]],
+                         "loss_rel_err": f_loss_rel,
+                         "raw_max_abs_err": f_raw_err,
+                         "launches": [fused[True][2], fused[False][2]]},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("fixed pipeline: K2 not launched each step, or "
+                             "the card disagrees with the CPU, or the fused "
+                             "step with the plain one")
+    return launches, fused[True][2]
+
+
 def main() -> int:
     import torch
 
@@ -1488,27 +2041,48 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
     try:
-        smi = phase_device()
-        phase_build()
-        kern = phase_kernel()
-        kern_bwd = phase_kernel_bwd()
-        kern_pipe = phase_kernel_pipeline()
-        sym_path = phase_kernel_sym_path()
-        launches = phase_serving()
-        trains = [phase_train(d) for d in ("bf16", "f32")]
-        phase_train_vs_cpu()
-        render = phase_render()
-        phase_fused_grad()
-        trainer, cli = phase_trainer(smi)
-        phase_trainer_vs_cpu()
+        smi = timed("device", phase_device)
+        timed("build", phase_build)
+        kern = timed("kernel", phase_kernel)
+        kern_bwd = timed("kernel_bwd", phase_kernel_bwd)
+        kern_pipe = timed("kernel_pipeline", phase_kernel_pipeline)
+        sym_path = timed("kernel_sym_path", phase_kernel_sym_path)
+        launches = timed("serving", phase_serving)
+        trains = [timed(f"train_{d}", phase_train, d) for d in ("bf16", "f32")]
+        timed("train_vs_cpu", phase_train_vs_cpu)
+        render = timed("render", phase_render)
+        timed("fused_grad", phase_fused_grad)
+        trainer, cli = timed("trainer", phase_trainer, smi)
+        timed("trainer_vs_cpu", phase_trainer_vs_cpu)
+        agent, det_sd, data_yaml, records, validation = timed(
+            "validation", phase_validation, smi)
+        val_cli = timed("val_cli", phase_val_cli, agent, det_sd, data_yaml,
+                        records)
+        hr, train_isp_val = timed("hr_render", phase_hr_render, agent)
+        fixed, fixed_fused = timed("fixed_pipeline", phase_fixed_pipeline,
+                                   smi, det_sd)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
+    emit({"phase_seconds": seconds,
+          "since_start": time.perf_counter() - STARTED})
     main_paths = {"serving": launches,
                   **{f"train_{t['detector_dtype']}": t["launches"]
                      for t in trains},
-                  "render": render, "trainer": trainer["launches"], **cli}
+                  "render": render, "trainer": trainer["launches"], **cli,
+                  **{f"validation_{k}": v for k, v in validation.items()},
+                  "val_cli": val_cli, "hr_render": hr,
+                  "train_isp_val": train_isp_val, "fixed_pipeline": fixed,
+                  "fixed_step_fused": fixed_fused}
 
     def entry(name, counter, source, replaces, cases, err_key, paths,
               ms_key="ms"):

@@ -272,7 +272,8 @@ def test_load_yolo_weights(runs, tmp_path):
 def test_train_isp_cli_one_step(tmp_path, monkeypatch):
     """``python -m adaptiveisp_tpu_torch.train_isp --device cpu
     --max_steps 1`` on a toy data YAML (tiny detector, reduced roster):
-    iterations 0 and 1 run; val and dp refuse with their queue item."""
+    iterations 0 and 1 run; ``--task val`` renders the validation set at
+    full resolution; dp refuses with its queue item."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     monkeypatch.chdir(tmp_path)
     _toy_set(tmp_path / "toy")
@@ -288,8 +289,9 @@ def test_train_isp_cli_one_step(tmp_path, monkeypatch):
     assert tr.val_feed is not None and len(tr.val_feed["im"]) == 8
     assert os.path.isdir(tmp_path / "experiments" / "lod-adaptiveisp")
     assert np.isfinite([h["agent_loss"] for h in tr.history]).all()
-    with pytest.raises(SystemExit, match="P10"):
-        train_isp.main(base + ["--task", "val"])
+    out = train_isp.main(base + ["--task", "val", "--steps", "1",
+                                 "--val_save_path", str(tmp_path / "val")])
+    assert len(os.listdir(os.path.join(out, "step-0"))) == 10
     with pytest.raises(SystemExit, match="P15"):
         train_isp.main(base + ["--dp", "2"])
     with pytest.raises(NotImplementedError):
