@@ -9,8 +9,9 @@ One dataset class with a ``source`` option:
   "rod"        .npy HDR, 99th-percentile normalisation
 and ``high_res``, which adds ``im_hr``: the max-side-capped frame before the
 letterbox, for rendering at full resolution.  ``split`` cuts one file list
-into train and validation views.  The JAX dataset's image caches and the
-feeder's data-parallel sharding are not ported.
+into train and validation views.  ``cache_images`` ("ram" or "disk") keeps
+the decoded, resized images (:mod:`.image_cache`).  The feeder's
+data-parallel sharding is not ported.
 :class:`BatchFeeder` walks the dataset in shuffled epochs behind a
 :class:`~adaptiveisp_tpu_torch.data.prefetch.Prefetcher` thread.
 
@@ -27,6 +28,7 @@ from typing import List
 import numpy as np
 
 from adaptiveisp_tpu_torch.data import raw_np
+from adaptiveisp_tpu_torch.data.image_cache import ImageCache
 from adaptiveisp_tpu_torch.data.labels import (
     img2label_paths,
     img2label_paths_rod,
@@ -54,7 +56,8 @@ class ISPDataset:
                  high_res: bool = False, add_noise: bool = False,
                  brightness_range=None, noise_level=None,
                  use_linear: bool = False, limit: int = -1,
-                 train: bool = True, seed: int = 0):
+                 train: bool = True, seed: int = 0, cache_images=None,
+                 cache_threads: int = 8):
         self.img_size = img_size
         self.source = source
         self.high_res = high_res
@@ -82,18 +85,39 @@ class ISPDataset:
         # positions -> file indices (a subset view after split())
         self.indices = np.arange(len(self.im_files))
 
+        # decoded-image cache: "disk" entries are keyed by a digest of the
+        # full path and by img_size, so same-named images of two
+        # directories, or a rerun at another size, never share an entry
+        disk = None
+        if cache_images == "disk":
+            import hashlib
+
+            cdir = os.path.join(os.path.dirname(self.im_files[0]) or ".",
+                                ".adaptiveisp_im_cache")
+            os.makedirs(cdir, exist_ok=True)
+            disk = [os.path.join(
+                cdir, os.path.splitext(os.path.basename(f))[0] + "_"
+                + hashlib.sha1(os.path.abspath(f).encode()).hexdigest()[:10]
+                + f"_{img_size}.npz") for f in self.im_files]
+        self.cache = ImageCache(cache_images, len(self.im_files),
+                                self._decode_resized, disk, cache_threads)
+
     def __len__(self):
         return len(self.indices)
 
     # ---------------------------------------------------------------- #
-    def _load_one(self, index: int):
+    def _decode_resized(self, index: int):
         """Load + resize longest side to img_size (reference load_image)."""
         img = load_image_file(self.im_files[index])
         h0, w0 = img.shape[:2]
         r = self.img_size / max(h0, w0)
         if r != 1:
             img = resize_bilinear(img, int(round(h0 * r)), int(round(w0 * r)))
-        return np.ascontiguousarray(img, np.float32), (h0, w0), img.shape[:2]
+        return np.ascontiguousarray(img, np.float32), (h0, w0)
+
+    def _load_one(self, index: int):
+        img, hw0 = self.cache.load(index)
+        return img, hw0, img.shape[:2]
 
     def __getitem__(self, index: int):
         index = int(self.indices[index])
@@ -159,7 +183,7 @@ class ISPDataset:
     # ---------------------------------------------------------------- #
     def get_batch(self, indices: List[int]):
         uniq = list(dict.fromkeys(int(self.indices[i]) for i in indices))
-        if len(uniq) > 1:
+        if len(uniq) > 1 and self.cache.mode != "ram":
             from concurrent.futures import ThreadPoolExecutor
 
             with ThreadPoolExecutor(min(DECODE_THREADS, len(uniq))) as ex:

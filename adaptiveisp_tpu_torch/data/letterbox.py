@@ -45,11 +45,13 @@ def resize_bilinear(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return top * (1 - wy) + bot * wy
 
 
-def letterbox(im: np.ndarray, new_shape=(640, 640), scaleup: bool = True
+def letterbox(im: np.ndarray, new_shape=(640, 640), scaleup: bool = True,
+              color=(0.0, 0.0, 0.0)
               ) -> Tuple[np.ndarray, Tuple[float, float], Tuple[float, float]]:
-    """Resize + pad to `new_shape` keeping aspect, with black borders: the
-    reference's letterbox (:111-143) as the datasets call it (auto=False,
-    color=(0,0,0), reference dataset.py:616).
+    """Resize + pad to `new_shape` keeping aspect: the reference's letterbox
+    (:111-143) with auto=False.  Borders are ``color``: black as the ISP
+    datasets call it (reference dataset.py:616), 114/255 grey in the
+    detector dataset.
 
     Returns (image, (rw, rh), (dw, dh)).
     """
@@ -76,10 +78,11 @@ def letterbox(im: np.ndarray, new_shape=(640, 640), scaleup: bool = True
     if im.dtype == np.float32:
         from adaptiveisp_tpu_torch.data.native import fill_paste_native
 
-        out = fill_paste_native(im, oh, ow, top, left, 0.0)
+        out = fill_paste_native(im, oh, ow, top, left, color)
         if out is not None:
             return out, ratio, (dw, dh)
-    out = np.zeros((oh, ow, im.shape[2]), dtype=im.dtype)
+    out = np.empty((oh, ow, im.shape[2]), dtype=im.dtype)
+    out[...] = np.asarray(color, dtype=im.dtype)
     out[top:top + im.shape[0], left:left + im.shape[1]] = im
     return out, ratio, (dw, dh)
 

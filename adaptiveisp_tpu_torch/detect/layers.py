@@ -2,8 +2,11 @@
 matching part of ``adaptiveisp_tpu/detect/layers.py``).
 
 NCHW inside, ultralytics child names (``conv``, ``bn``, ``cv1``, ``cv2``) so
-state dicts keep the original keys.  BatchNorm matches the JAX package's
-(eps 1e-5, torch momentum 0.1 = flax momentum 0.9).
+state dicts keep the original keys.  BatchNorm is flax's ``BatchNorm(
+momentum=0.9, epsilon=1e-5)``: eval mode is ``nn.BatchNorm2d``'s, and train
+mode normalises with the biased batch variance and moves the running
+statistics by ``0.9 * old + 0.1 * batch`` with that same biased variance
+(``FlaxBatchNorm2d``), where ``nn.BatchNorm2d`` would take the unbiased one.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from adaptiveisp_tpu_torch.policy.nets import FlaxBatchNorm2d
 
 
 def autopad(k: int) -> int:
@@ -36,7 +41,7 @@ class ConvBNAct(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k) if p is None else p,
                               bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=1e-5, momentum=0.1)
+        self.bn = FlaxBatchNorm2d(c2, eps=1e-5)
         self.act = activation(act)
 
     def forward(self, x):

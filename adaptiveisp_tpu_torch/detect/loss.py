@@ -1,6 +1,5 @@
-"""YOLO detection loss per image, the RL reward (port of
-``adaptiveisp_tpu/detect/loss.py`` except ``batch_loss``, which belongs to
-detector training).
+"""YOLO detection loss: per image (the RL reward) and over a batch (detector
+training); port of ``adaptiveisp_tpu/detect/loss.py``.
 
 Targets are padded to a fixed [N, T_max, 5] (cls, xywh normalised) with a
 validity mask.  Assignment is a static candidate table [5 offsets x na
@@ -184,6 +183,32 @@ def per_image_loss_batch(preds: Sequence[torch.Tensor], targets, tmask,
     lbox, lobj, lcls = lbox * hyp.box, lobj * hyp.obj, lcls * hyp.cls
     return (lbox + lobj + lcls)[:, None], {"box": lbox, "obj": lobj,
                                            "cls": lcls}
+
+
+def batch_loss(preds: Sequence[torch.Tensor], targets, tmask,
+               anchors_grid: Sequence, hyp: LossHyp):
+    """ComputeLoss semantics over a batch: each level's box and class terms
+    are averaged over the batch's matched candidates, objectness over the
+    batch's cells, with the level balance (``BALANCE_3`` / ``BALANCE_5``).
+
+    preds: per-level [N, ny, nx, na, no]; targets [N, T, 5]; tmask [N, T].
+    Returns ((lbox + lobj + lcls) * N, components [3] detached)."""
+    balance = BALANCE_3 if len(preds) == 3 else BALANCE_5
+    bs = preds[0].shape[0]
+    tmask = tmask.to(torch.bool)
+    lbox = lobj = lcls = 0.0
+    for i, pred in enumerate(preds):
+        box_sums, ns, obj_means, cls_sums, n_cls = _level_terms(
+            pred, targets, tmask, anchors_grid[i], hyp)
+        n_tot = ns.sum()
+        has = (n_tot > 0).to(torch.float32)
+        lbox = lbox + has * box_sums.sum() / torch.clamp(n_tot, min=1.0)
+        lcls = lcls + has * cls_sums.sum() / torch.clamp(n_cls.sum(),
+                                                         min=1.0)
+        lobj = lobj + obj_means.mean() * balance[i]
+    lbox, lobj, lcls = lbox * hyp.box, lobj * hyp.obj, lcls * hyp.cls
+    comps = torch.stack([lbox, lobj, lcls]).detach()
+    return (lbox + lobj + lcls) * bs, comps
 
 
 def per_image_loss(preds: Sequence[torch.Tensor], targets, tmask,

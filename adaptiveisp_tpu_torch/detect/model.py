@@ -7,6 +7,9 @@ state-dict keys are ultralytics' ``model.{i}.*`` / ``model.{i}.{r}.*``.  It
 takes NHWC images, runs NCHW inside, and returns the raw per-level logits in
 the JAX package's order [N, ny, nx, na, no] (not ultralytics'
 [N, na, ny, nx, no]): candidate order feeds NMS top-k and its ties.
+In train mode (``model.train()``) it returns the same raw per-level logits
+with BatchNorm on the batch's statistics (flax's, see ``layers.py``): the
+JAX model's ``train=True`` forward, which ``loss.batch_loss`` takes.
 :func:`decode_predictions` turns them into pixel-space boxes.
 """
 

@@ -94,6 +94,25 @@ Phases, each printing one JSON line:
      and squashed parameters within 1e-3); one ``make_fixed_pipeline_step``
      on the 5-stage chain with the fused render (K4 forward, its gradient
      through the plain chain) against ``allow_fused=False``;
+ 14. detector_train: detector training at full width through
+     ``detect.train_loop.DetectorTrainer``: full YOLOv3 (61.9 M parameters,
+     80 classes), 640 px, batch 16, f32, the default hyp (mosaic, HSV,
+     flips, perspective) on 64 seeded synthetic-shapes PNGs under
+     ``build/det_smoke`` (16 more for validation), 2 epochs of 4 steps with
+     validation and checkpoints each epoch; step ms (CUDA events, the
+     optimizer update and the EMA apart), images/s, the host's data ms per
+     batch against the step's device ms and the busy share, validation and
+     checkpoint seconds, peak memory; losses finite, the EMA moved, and a
+     trainer resumed from the first epoch's checkpoint repeats the second
+     epoch bit for bit (cuDNN deterministic in this phase);
+ 15. detector_vs_cpu: the same full YOLOv3 at batch 2 @ 256 px,
+     augmentation off, 2 train steps on the card and on the CPU from one
+     state: loss, parameters, BatchNorm statistics and EMA within the
+     tolerances its docstring states and justifies, with how far the
+     parameters moved;
+ 16. detector_cli: ``detect.train_loop.main --spec yolov3 --imgsz 640
+     --batch-size -1 --epochs 1`` on the same images (autobatch's choice
+     printed), and its best.pt as ``val_isp --weights`` on 4 images;
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
@@ -139,6 +158,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 TRAINER_WARMUP, TRAINER_ITERS = 3, 20
 TRAINER_IMAGES, TRAINER_VAL = 64, 8
 MAIN_GATE = np.array([1, 0, 0.3, 1, 0, 1, 1, 0], np.float32)
+DET_IMAGES, DET_VAL, DET_SIZE, DET_BATCH = 64, 16, 640, 16
+DET_EPOCHS = 2
+DET_CPU_SIZE, DET_CPU_BATCH, DET_CPU_STEPS = 256, 2, 2
 
 
 def emit(obj):
@@ -2034,6 +2056,322 @@ def phase_fixed_pipeline(smi, det_sd):
     return launches, fused[True][2]
 
 
+def _det_data():
+    """64 seeded 640 x 640 synthetic-shapes PNGs for training and 16 for
+    validation, 2-5 filled rectangles each with a YOLO label of one of 80
+    classes, and a data YAML over the validation images, under
+    build/det_smoke."""
+    import shutil
+    from pathlib import Path
+
+    import yaml
+    from PIL import Image
+
+    root = Path(__file__).resolve().parent / "build" / "det_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(80)
+    for split, n in (("train", DET_IMAGES), ("val", DET_VAL)):
+        (root / split / "images").mkdir(parents=True)
+        (root / split / "labels").mkdir()
+        for i in range(n):
+            s = DET_SIZE
+            img = (rng.rand(1, 1, 3) * 0.4 + 0.3
+                   + rng.rand(s, s, 3) * 0.2).astype(np.float32)
+            rows = []
+            for _ in range(rng.randint(2, 6)):
+                w, h = rng.randint(s // 16, s * 2 // 5, 2)
+                x0, y0 = rng.randint(0, s - w), rng.randint(0, s - h)
+                c = rng.randint(0, 80)
+                img[y0:y0 + h, x0:x0 + w] = rng.rand(3)
+                rows.append(f"{c} {(x0 + w / 2) / s:.6f} {(y0 + h / 2) / s:.6f}"
+                            f" {w / s:.6f} {h / s:.6f}\n")
+            Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+                root / split / "images" / f"{i}.png")
+            (root / split / "labels" / f"{i}.txt").write_text("".join(rows))
+    (root / "val.yaml").write_text(yaml.safe_dump({
+        "path": str(root / "val"), "train": "images", "val": "images",
+        "nc": 80, "source": "normalize"}))
+    return root
+
+
+def _state_snapshot(tr):
+    """Host copies of a DetectorTrainer's model state, EMA and optimizer
+    state."""
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    opt = tr.state.optimizer.state_dict()
+    return {"model": cpu(tr.model.state_dict()),
+            "ema": cpu(tr.state.ema.params),
+            "opt": {str(i): s["trace"].cpu().clone()
+                    for i, s in opt["state"].items()},
+            "count": opt["count"], "step": tr.state.step,
+            "updates": tr.state.ema.updates}
+
+
+def phase_detector_train(smi):
+    """Detector training at full width on the card: ``DetectorTrainer`` on
+    full YOLOv3 (80 classes), 640 px, batch 16, f32, the default hyp
+    (mosaic, HSV, flips, perspective), validation and checkpoints every
+    epoch, for 2 epochs of 4 steps; each step timed by CUDA events (the
+    step, its optimizer update and EMA apart), each batch's host data time
+    by the host clock; then a second trainer resumed from the first
+    epoch's checkpoint runs the second epoch, equal bit for bit (cuDNN
+    deterministic in this phase)."""
+    import contextlib
+
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.data.detector_dataset import DetectorDataset
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+    from adaptiveisp_tpu_torch.detect.train_detector import DetTrainConfig
+    from adaptiveisp_tpu_torch.detect.train_loop import DetectorTrainer
+
+    root = _det_data()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = DetTrainConfig(epochs=DET_EPOCHS, batch_size=DET_BATCH)
+
+    def trainer(save):
+        tds = DetectorDataset(str(root / "train" / "images"),
+                              img_size=DET_SIZE, batch_size=DET_BATCH,
+                              augment=True, nc=80, seed=0)
+        vds = DetectorDataset(str(root / "val" / "images"),
+                              img_size=DET_SIZE, batch_size=DET_BATCH,
+                              augment=False, nc=80)
+        model = api.load_detector(YOLOV3_SPEC, seed=0, device="cuda").model
+        return DetectorTrainer(model, YOLOV3_SPEC, tds, vds, cfg=cfg,
+                               save_dir=str(root / save), save_period=1,
+                               device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer("run")
+    start = {k: v.detach().clone() for k, v in tr.state.ema.params.items()}
+    events, data_ms, epoch_s, phase_s = [], [], [], {"val": [], "save": []}
+
+    def timed_events(fn, name):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            events.append((name, e0, e1))
+            return out
+        return run
+
+    def timed_host(fn, sink):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sink.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    tr.step_fn = timed_events(tr.step_fn, "step")
+    tr.state.optimizer.step = timed_events(tr.state.optimizer.step,
+                                           "optimizer")
+    tr.state.ema.update = timed_events(tr.state.ema.update, "ema")
+    tr.train_ds.collate = timed_host(tr.train_ds.collate, data_ms)
+    tr.train_epoch = timed_host(tr.train_epoch, epoch_s)
+    tr._validate = timed_host(tr._validate, phase_s["val"])
+    tr._save = timed_host(tr._save, phase_s["save"])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        hist = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = {n: [e0.elapsed_time(e1) for m, e0, e1 in events if m == n]
+          for n in ("step", "optimizer", "ema")}
+    spe = DET_IMAGES // DET_BATCH
+    step_med = float(np.median(ms["step"][1:]))
+    busy = [sum(ms["step"][e * spe:(e + 1) * spe]) / 1e3 / epoch_s[e]
+            for e in range(len(epoch_s))]
+    final = _state_snapshot(tr)
+    ema_moved = max(float((v.cpu() - start[k].cpu()).abs().max())
+                    for k, v in tr.state.ema.params.items())
+    losses = [h.loss for h in hist]
+
+    # resume from the first epoch's checkpoint into a fresh trainer
+    tr2 = trainer("resumed")
+    ck = str(root / "run" / "epoch0.pt")
+    with contextlib.redirect_stdout(sys.stderr):
+        start_epoch = tr2.resume(ck)
+        hist2 = tr2.fit()
+    again = _state_snapshot(tr2)
+    diffs = [f"{part}/{k}" for part in ("model", "ema", "opt")
+             for k in final[part]
+             if not torch.equal(final[part][k], again[part][k])]
+    diffs += [k for k in ("count", "step", "updates") if final[k] != again[k]]
+    torch.backends.cudnn.deterministic = False
+    rec = {"phase": "detector_train", "nvidia_smi": smi,
+           "spec": "yolov3", "imgsz": DET_SIZE, "batch": DET_BATCH,
+           "epochs": DET_EPOCHS, "steps_per_epoch": spe,
+           "params": sum(p.numel() for p in tr.model.parameters()),
+           "losses": losses, "map50": [h.metrics["map50"] for h in hist],
+           "step_ms": ms["step"], "step_ms_median_after_first": step_med,
+           "images_per_s": DET_BATCH * 1e3 / step_med,
+           "optimizer_ms_median": float(np.median(ms["optimizer"])),
+           "ema_ms_median": float(np.median(ms["ema"])),
+           "host_data_ms_per_batch": [d * 1e3 for d in data_ms],
+           "host_data_ms_median": float(np.median(data_ms)) * 1e3,
+           "epoch_train_s": epoch_s, "busy_share": busy,
+           "validation_s": phase_s["val"], "checkpoint_s": phase_s["save"],
+           "fit_s": fit_s, "peak_gb": peak / 1e9, "ema_moved": ema_moved,
+           "resume_start_epoch": start_epoch,
+           "resume_losses": [h.loss for h in hist2],
+           "resume_equal": not diffs, "resume_diffs": diffs[:10]}
+    emit(rec)
+    if (not all(np.isfinite(losses)) or ema_moved <= 0 or diffs
+            or start_epoch != 1 or len(ms["step"]) != DET_EPOCHS * spe
+            or [h.loss for h in hist2] != losses[1:]):
+        raise AssertionError(f"detector_train: {rec}")
+    return rec
+
+
+def phase_detector_vs_cpu():
+    """The same full YOLOv3 at batch 2 @ 256 px, augmentation off, two
+    train steps (``make_detector_train_step`` with the warmup optimizer:
+    the biases at lr 0.1, the kernels at 0 then 3.3e-5) on the card and on
+    the CPU from one state.  Tolerances: loss 1e-4 relative; conv kernels
+    and BatchNorm weights 1e-5 of their largest value (their updates are
+    lr 3.3e-5 times the gradient, so a gradient's float32 error of 1e-3
+    relative moves them 3e-8); biases and BatchNorm statistics 1e-3 (sums
+    over every position of the batch, in cuDNN's order on the card and
+    oneDNN's on the CPU, the biases' gradient sums scaled by lr 0.1;
+    through 75 conv layers).  The EMA as its parameters."""
+    import copy
+
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.data.detector_dataset import DetectorDataset
+    from adaptiveisp_tpu_torch.detect.loss import LossHyp
+    from adaptiveisp_tpu_torch.detect.model import anchors_in_grid_units
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+    from adaptiveisp_tpu_torch.detect.train_detector import (
+        DetTrainConfig,
+        init_detector_train_state,
+        make_detector_train_step,
+    )
+    from adaptiveisp_tpu_torch.detect.train_loop import make_warmup_optimizer
+
+    root = Path(__file__).resolve().parent / "build" / "det_smoke"
+    ds = DetectorDataset(str(root / "train" / "images"),
+                         img_size=DET_CPU_SIZE, batch_size=DET_CPU_BATCH,
+                         augment=False, nc=80)
+    batches = [b for _, b in zip(range(DET_CPU_STEPS),
+                                 ds.epoch_batches(shuffle=False))]
+    base = api.load_detector(YOLOV3_SPEC, seed=0, device="cpu").model
+    tx, _ = make_warmup_optimizer(DetTrainConfig(), 100)
+    step = make_detector_train_step(anchors_in_grid_units(YOLOV3_SPEC),
+                                    LossHyp(obj=(DET_CPU_SIZE / 640) ** 2))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        state = init_detector_train_state(copy.deepcopy(base).to(dev), tx)
+        losses = []
+        for b in batches:
+            state, o = step(state, *(torch.from_numpy(a).to(dev) for a in b))
+            losses.append(float(o["loss"]))
+        out[dev] = {"losses": losses, "secs": time.perf_counter() - t0,
+                    "model": {k: v.cpu() for k, v in
+                              state.model.state_dict().items()},
+                    "ema": {k: v.cpu() for k, v in state.ema.params.items()}}
+    start = base.state_dict()
+    worst, moved, fails = {}, {}, []
+    for part in ("model", "ema"):
+        for k, want in out["cpu"][part].items():
+            if "num_batches" in k:
+                continue
+            got = out["cuda"][part][k]
+            scale = float(want.abs().max()) or 1.0
+            err = float((got - want).abs().max()) / scale
+            tol = (1e-3 if k.endswith(("bias", "running_mean",
+                                       "running_var")) else 1e-5)
+            kind = "bias_stats" if tol == 1e-3 else "kernels"
+            worst[f"{part}_{kind}"] = max(worst.get(f"{part}_{kind}", 0),
+                                          err)
+            if part == "model":
+                mv = float((want - start[k]).abs().max()) / scale
+                moved[kind] = max(moved.get(kind, 0.0), mv)
+            if err > tol:
+                fails.append((part, k, err))
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(out["cuda"]["losses"], out["cpu"]["losses"]))
+    rec = {"phase": "detector_vs_cpu", "imgsz": DET_CPU_SIZE,
+           "batch": DET_CPU_BATCH, "steps": DET_CPU_STEPS,
+           "losses_cuda": out["cuda"]["losses"],
+           "losses_cpu": out["cpu"]["losses"], "loss_rel_err": loss_err,
+           "max_rel_err": worst, "moved_rel": moved,
+           "cuda_s": out["cuda"]["secs"], "cpu_s": out["cpu"]["secs"],
+           "fails": fails[:10]}
+    emit(rec)
+    if fails or loss_err > 1e-4:
+        raise AssertionError(f"detector_vs_cpu: {rec}")
+    return rec
+
+
+def phase_detector_cli():
+    """``train_loop.main`` at full width on the card: ``--spec yolov3
+    --imgsz 640 --batch-size -1 --epochs 1`` on the detector data
+    (autobatch sizes the batch from trial steps), then the written best.pt
+    as ``val_isp --weights`` on 4 validation images."""
+    import contextlib
+
+    import torch
+    import yaml
+
+    from adaptiveisp_tpu_torch import val_isp
+    from adaptiveisp_tpu_torch.detect import autobatch
+    from adaptiveisp_tpu_torch.detect import train_loop
+
+    root = Path(__file__).resolve().parent / "build" / "det_smoke"
+    save = root / "cli"
+    chosen = []
+    fit = autobatch.fit_batch
+
+    def record(*a, **k):
+        chosen.append(fit(*a, **k))
+        return chosen[-1]
+
+    autobatch.fit_batch = record
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            hist = train_loop.main([
+                "--data", str(root / "train" / "images"),
+                "--val-data", str(root / "train" / "images"),
+                "--spec", "yolov3", "--imgsz", str(DET_SIZE),
+                "--batch-size", "-1", "--epochs", "1",
+                "--save-dir", str(save), "--exist-ok", "--device", "cuda"])
+    finally:
+        autobatch.fit_batch = fit
+    train_s = time.perf_counter() - t0
+    opt = yaml.safe_load((save / "opt.yaml").read_text())
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = val_isp.main([
+            "--data", str(root / "val.yaml"), "--weights",
+            str(save / "best.pt"), "--imgsz", "512", "--device", "cuda",
+            "--max_images", "4", "--project", str(root / "val_cli"),
+            "--name", "exp"])
+    torch.cuda.synchronize()
+    rec = {"phase": "detector_cli", "autobatch": chosen,
+           "batch_size": opt["batch_size"], "train_s": train_s,
+           "losses": [h.loss for h in hist], "val_isp_s":
+           time.perf_counter() - t0, "val_isp_map50": res["map50"],
+           "files": sorted(p.name for p in save.iterdir())}
+    emit(rec)
+    if (len(chosen) != 1 or opt["batch_size"] != chosen[0]
+            or not (save / "best.pt").exists()
+            or not np.isfinite(hist[0].loss)
+            or not np.isfinite(res["map50"])):
+        raise AssertionError(f"detector_cli: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2070,6 +2408,9 @@ def main() -> int:
         hr, train_isp_val = timed("hr_render", phase_hr_render, agent)
         fixed, fixed_fused = timed("fixed_pipeline", phase_fixed_pipeline,
                                    smi, det_sd)
+        timed("detector_train", phase_detector_train, smi)
+        timed("detector_vs_cpu", phase_detector_vs_cpu)
+        timed("detector_cli", phase_detector_cli)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1

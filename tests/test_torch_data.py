@@ -151,10 +151,11 @@ def test_hyp_split_matches_jax(tmp_path):
     path.write_text("box: 0.07\ncls: 0.3\nobj: 0.8\nfl_gamma: 1.5\n")
     got, want = thyp.load_hyp(str(path)), jhyp.load_hyp(str(path))
     assert got == want
-    _, loss_t, aug_t = thyp.split_hyp(got, nl=2, nc=8, imgsz=320)
-    _, loss_j, aug_j = jhyp.split_hyp(want, nl=2, nc=8, imgsz=320)
+    cfg_t, loss_t, aug_t = thyp.split_hyp(got, nl=2, nc=8, imgsz=320)
+    cfg_j, loss_j, aug_j = jhyp.split_hyp(want, nl=2, nc=8, imgsz=320)
     assert vars(loss_t) == vars(loss_j)
-    assert aug_t == {k: getattr(aug_j, k) for k in aug_t}
+    assert vars(aug_t) == vars(aug_j)
+    assert vars(cfg_t) == vars(cfg_j)
     path.write_text("boxx: 1.0\n")
     with pytest.raises(KeyError):
         thyp.load_hyp(str(path))

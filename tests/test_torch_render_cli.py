@@ -126,10 +126,15 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'adaptiveisp_tpu.')) "
         "or m == 'adaptiveisp_tpu')\n"
+        "new = {'adaptiveisp_tpu_torch.' + n for n in ("
+        "'data.augment', 'data.detector_dataset', 'data.image_cache', "
+        "'detect.autoanchor', 'detect.autobatch', 'detect.train_detector', "
+        "'detect.train_loop', 'obs.callbacks', 'obs.loggers')}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.split(" ", 1)
-    assert int(count) >= 30 and bad.strip() == "[]", res.stdout
+    assert int(count) >= 70 and bad.strip() == "[]", res.stdout
