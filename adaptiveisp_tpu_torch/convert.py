@@ -113,25 +113,57 @@ def value_from_flax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_YOLO_CHILD = (
+    (re.compile(r"m(\d+)"), "m.{}"),          # Detect levels, C3 blocks
+    (re.compile(r"tr(\d+)"), "tr.{}"),        # transformer layers
+    (re.compile(r"conv(\d+)"), "conv.{}"),    # GhostBottleneck's convs
+    (re.compile(r"short(\d+)"), "shortcut.{}"),
+)
+
+
+def _yolo_child(name: str) -> str:
+    for pat, fmt in _YOLO_CHILD:
+        m = pat.fullmatch(name)
+        if m:
+            return fmt.format(m.group(1))
+    return "ma.out_proj" if name == "out_proj" else name
+
+
 def yolo_from_flax(params, batch_stats, spec) -> Dict[str, torch.Tensor]:
     """flax DetectionModel variables -> state_dict of the port's
-    ``DetectionModel`` (ultralytics naming: layer ``l{i}`` -> ``model.{i}``,
-    repeat ``l{i}_{r}`` -> ``model.{i}.{r}``, Detect level ``m{j}`` ->
-    ``model.{i}.m.{j}``)."""
+    ``DetectionModel`` in ultralytics naming: layer ``l{i}`` -> ``model.{i}``,
+    repeat ``l{i}_{r}`` -> ``model.{i}.{r}``, ``m{j}`` (Detect levels, C3
+    blocks) -> ``m.{j}``, ``tr{r}`` -> ``tr.{r}``, GhostBottleneck's
+    ``conv{j}`` / ``short{j}`` -> ``conv.{j}`` / ``shortcut.{j}``, the
+    attention's ``in_q``/``in_k``/``in_v`` -> ``ma.in_proj_weight`` /
+    ``ma.in_proj_bias`` and ``out_proj`` -> ``ma.out_proj``; activation
+    parameters (``act``: AconC's p1/p2/beta [1,1,1,C] -> [1,C,1,1])."""
     n_layers = len(flatten_layers(spec))
     sd: Dict[str, torch.Tensor] = {}
 
     def emit(prefix, ptree, stree):
+        if "in_q" in ptree:  # torch MHA's joint in-projection
+            sd[f"{prefix}.ma.in_proj_weight"] = torch.cat(
+                [_linear(ptree[k]["kernel"]) for k in ("in_q", "in_k",
+                                                       "in_v")])
+            sd[f"{prefix}.ma.in_proj_bias"] = torch.cat(
+                [_t(ptree[k]["bias"]) for k in ("in_q", "in_k", "in_v")])
         for k, v in ptree.items():
-            if k == "conv":
-                sd[f"{prefix}.conv.weight"] = _conv(v["kernel"])
-            elif k == "bn":
-                _bn(sd, f"{prefix}.bn", v, stree["bn"])
-            elif re.fullmatch(r"m\d+", k):  # Detect head conv
-                sd[f"{prefix}.m.{k[1:]}.weight"] = _conv(v["kernel"])
-                sd[f"{prefix}.m.{k[1:]}.bias"] = _t(v["bias"])
-            else:  # nested block (cv1 / cv2)
-                emit(f"{prefix}.{k}", v, stree.get(k, {}))
+            if k in ("in_q", "in_k", "in_v"):
+                continue
+            name = f"{prefix}.{_yolo_child(k)}"
+            if not isinstance(v, dict):  # an activation's own parameter
+                sd[name] = _t(np.transpose(np.asarray(v), (0, 3, 1, 2)))
+            elif "scale" in v:  # BatchNorm
+                _bn(sd, name, v, stree[k])
+            elif "kernel" in v:  # conv or dense
+                kern = np.asarray(v["kernel"])
+                sd[f"{name}.weight"] = (_conv(kern) if kern.ndim == 4
+                                        else _linear(kern))
+                if "bias" in v:
+                    sd[f"{name}.bias"] = _t(v["bias"])
+            else:  # nested block
+                emit(name, v, stree.get(k, {}))
 
     for lname, ptree in params.items():
         m = re.fullmatch(r"l(\d+)(?:_(\d+))?", lname)

@@ -635,7 +635,7 @@ def main(argv: Optional[Sequence[str]] = None):
                   else tuple(args.freeze))
 
     def new_model(run_spec):
-        return api.load_detector(run_spec, seed=args.seed,
+        return api.load_detector(spec=run_spec, seed=args.seed,
                                  device=dev).model
 
     if args.batch_size == -1:

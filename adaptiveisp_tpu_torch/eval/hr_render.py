@@ -52,7 +52,7 @@ def run_hr_validation(cfg, tcfg, data, model_weights: Optional[str],
 
     state_dict = (ckpt_lib.load_agent_weights(model_weights, cfg)
                   if model_weights else None)
-    isp = api.load_adaptive_isp(cfg, steps=steps, device=device,
+    isp = api.load_adaptive_isp(cfg=cfg, steps=steps, device=device,
                                 state_dict=state_dict)
     agent, dev = isp.agent, isp.device
 

@@ -2,9 +2,10 @@
 train-batch mosaics with drawn boxes (``plot_images``, PIL only), the label
 distribution (``plot_labels``), results.csv curves (``plot_results``), the
 hyperparameter-evolution scatter (``plot_evolve``), metric-vs-confidence
-curves (``plot_mc_curve``) and the speed-vs-mAP study (``plot_val_study``).
-Images are NHWC float in [0, 1].  matplotlib is imported when a curve plot
-is drawn; the feature-map and mask plots are not ported.
+curves (``plot_mc_curve``), the speed-vs-mAP study (``plot_val_study``) and
+per-stage feature maps (``capture_features`` with forward hooks, then
+``feature_visualization``).  Images are NHWC float in [0, 1].  matplotlib is
+imported when a curve plot is drawn; the mask plots are not ported.
 """
 
 from __future__ import annotations
@@ -328,3 +329,81 @@ def plot_val_study(dir: str = ".", save_path: Optional[str] = None) -> str:
     fig.savefig(save_path, dpi=200)
     plt.close(fig)
     return save_path
+
+
+def capture_features(model, x) -> dict:
+    """Each stage's output of a ``DetectionModel`` forward of ``x`` (NHWC),
+    named as flax's ``capture_intermediates`` names the JAX model's
+    modules: ``l{i}``, or ``l{i}_{r}`` for each repeat of a repeated row;
+    parameter-free rows (Upsample, Concat, pools) are not modules there
+    and are left out.  Feature maps come back NHWC in NumPy, the Detect
+    head's list as is."""
+    import torch
+
+    feats, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, inp, out):
+            feats[name] = (out.detach().permute(0, 2, 3, 1).float().cpu()
+                           .numpy() if isinstance(out, torch.Tensor)
+                           else out)
+        return hook
+
+    for i, m in enumerate(model.model):
+        if isinstance(m, torch.nn.Sequential):
+            hooks += [c.register_forward_hook(keep(f"l{i}_{r}"))
+                      for r, c in enumerate(m)]
+        elif any(True for _ in m.parameters()):
+            hooks.append(m.register_forward_hook(keep(f"l{i}")))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return feats
+
+
+def feature_visualization(features, save_dir: str, n: int = 32,
+                          max_stages: Optional[int] = None) -> list:
+    """Per-stage feature-map grids: for every 4-D NHWC map of
+    ``features`` (``capture_features``' dict, in layer order), the first
+    ``n`` channels of image 0 tiled 8 wide, saved as
+    ``stage{k}_{name}_features.png`` beside a ``.npy`` of the map; heads
+    (lists) are skipped."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(save_dir, exist_ok=True)
+    written = []
+    for stage, name in enumerate(sorted(
+            features,
+            key=lambda k: (int(k[1:].split("_")[0])
+                           if k[1:].split("_")[0].isdigit() else 1 << 30))):
+        if max_stages is not None and len(written) >= max_stages:
+            break
+        out = features[name]
+        if not hasattr(out, "ndim") or out.ndim != 4:
+            continue
+        x = np.asarray(out)
+        _, h, w, c = x.shape
+        if h <= 1 or w <= 1:
+            continue
+        k = min(n, c)
+        ncols = 8
+        nrows = int(math.ceil(k / ncols))
+        fig, ax = plt.subplots(nrows, ncols, tight_layout=True,
+                               squeeze=False)
+        ax = ax.ravel()
+        for i in range(k):
+            ax[i].imshow(x[0, :, :, i], cmap="gray")
+        for i in range(len(ax)):
+            ax[i].axis("off")
+        f = os.path.join(save_dir, f"stage{stage}_{name}_features.png")
+        fig.savefig(f, dpi=150, bbox_inches="tight")
+        plt.close(fig)
+        np.save(os.path.splitext(f)[0] + ".npy", x[0])
+        written.append(f)
+    return written

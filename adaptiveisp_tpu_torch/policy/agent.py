@@ -14,6 +14,8 @@
 The state-dict keys are the original AdaptiveISP names:
 ``feature_extractor.layers.*``, ``action_selection.layers.*``, ``fc1``/
 ``fc2`` (selector) and per-filter heads by short name (``NLM.fc_filter``).
+A fresh agent starts from flax's initial distributions
+(``nn_init.flax_init_``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from adaptiveisp_tpu_torch.nn_init import flax_init_
 from adaptiveisp_tpu_torch.ops import bank
 from adaptiveisp_tpu_torch.ops.math import adaptive_avg_pool, clip
 from adaptiveisp_tpu_torch.policy.nets import (
@@ -61,6 +64,7 @@ class Agent(nn.Module):
         for s in self.specs:
             self.add_module(s.short_name, FilterHead(
                 cfg.feature_extractor_dims, cfg.fc1_size, s.n_params))
+        flax_init_(self)
 
     def forward(self, x, z, states, progress, train: bool = False,
                 high_res=None, selected_filter_id=None,

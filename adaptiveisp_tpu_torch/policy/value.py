@@ -6,6 +6,8 @@ unbiased variance, mean saturation) join the RL state, and all of it is
 broadcast as constant image channels into the shared conv trunk (no
 dropout) and an MLP head to one scalar.  State-dict keys are the original
 AdaptiveISP Value's: ``feature_extractor.layers.*``, ``fc1``, ``fc2``.
+A fresh critic starts from flax's initial distributions
+(``nn_init.flax_init_``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from adaptiveisp_tpu_torch.nn_init import flax_init_
 from adaptiveisp_tpu_torch.ops.math import adaptive_avg_pool, clip
 from adaptiveisp_tpu_torch.policy.nets import FeatureExtractor, mlp_head
 
@@ -32,6 +35,7 @@ class Value(nn.Module):
             input_size=feature_size)
         self.fc1 = nn.Linear(cfg.feature_extractor_dims, cfg.fc1_size)
         self.fc2 = nn.Linear(cfg.fc1_size, 1)
+        flax_init_(self)
 
     def forward(self, images, states):
         """images [N, H, W, 3], states [N, num_state_dim] -> [N, 1].

@@ -143,7 +143,7 @@ class Trainer:
         # ---- networks, optimizers and the step ------------------------
         dev = self.device
         self.agent = api.load_adaptive_isp(
-            cfg, seed=tcfg.seed, device=dev,
+            cfg=cfg, seed=tcfg.seed, device=dev,
             state_dict=agent_state_dict).agent
         self.value = api.load_value(cfg, seed=tcfg.seed + 1, device=dev,
                                     state_dict=value_state_dict)
@@ -156,7 +156,7 @@ class Trainer:
             yolo_dtype = torch.bfloat16
         elif yolo_dtype in ("float32", "f32"):
             yolo_dtype = None
-        self.yolo = api.load_detector(spec, seed=tcfg.seed + 2, device=dev,
+        self.yolo = api.load_detector(spec=spec, seed=tcfg.seed + 2, device=dev,
                                       state_dict=yolo_state_dict,
                                       dtype=yolo_dtype).model
         hyp = (loss_hyp if loss_hyp is not None

@@ -98,7 +98,16 @@ def load_yolo_weights(path, spec):
     """Detector ``state_dict`` for the port's ``DetectionModel``: an
     ultralytics ``.pt``/``.pth`` (``model.{i}.*`` keys) directly, a ``.pkl``
     of flax variables through ``convert.yolo_from_flax``; a missing file
-    warns and returns None (seeded random weights)."""
+    warns and returns None (seeded random weights).  A name that is not a
+    file is looked up locally by ``data.artifacts.resolve_artifact``
+    (never downloaded)."""
+    if path and not os.path.isfile(path):
+        from adaptiveisp_tpu_torch.data.artifacts import resolve_artifact
+
+        try:
+            path = resolve_artifact(path, download=False)
+        except FileNotFoundError:
+            pass
     if path and os.path.isfile(path):
         if path.endswith((".pkl", ".pickle")):
             import pickle

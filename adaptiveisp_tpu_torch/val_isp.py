@@ -100,11 +100,11 @@ def run_at_size(args, imgsz):
     ds = ISPDataset(data["val"], img_size=imgsz,
                     source=data.get("source", "normalize"), train=False)
     isp = api.load_adaptive_isp(
-        cfg, seed=0, device=args.device,
+        cfg=cfg, seed=0, device=args.device,
         state_dict=(load_agent_weights(args.isp_weights, cfg)
                     if args.isp_weights else None))
     det = api.load_detector(
-        YOLOV3_SPEC, seed=1, device=args.device,
+        spec=YOLOV3_SPEC, seed=1, device=args.device,
         state_dict=load_yolo_weights(args.weights, YOLOV3_SPEC),
         dtype=torch.bfloat16 if args.half else None)
 

@@ -113,6 +113,25 @@ Phases, each printing one JSON line:
  16. detector_cli: ``detect.train_loop.main --spec yolov3 --imgsz 640
      --batch-size -1 --epochs 1`` on the same images (autobatch's choice
      printed), and its best.pt as ``val_isp --weights`` on 4 images;
+ 17. hub: ``api.yolov3()``, ``api.yolov3_spp()`` and ``api.yolov5s()`` on
+     the card at 640 px with ``spread_detector_state`` weights (seeded;
+     a fresh detector's scores all sit near 0.25), each forward's decoded
+     predictions against the same state_dict on the CPU;
+     ``Detector.__call__`` on a path, a PIL image and a uint8 array
+     against the CPU's; an NMS ensemble of two YOLOv3 weight files
+     (written under ``build/hub_smoke``) against the CPU's;
+ 18. rest: ``serve.rest`` on port 0 on the card (the hub's YOLOv3 file, the
+     Config() agent with denoise's selector bias raised so that it picks
+     denoise at every step, from a weights file, at 512 px): 8 POSTs of
+     PNGs of different sizes (launch counts read around them), /healthz,
+     a bad body (400); every answer equal to the in-process
+     ``rest.infer``; latency median and p90; one profiled request;
+ 19. detect_cli: ``detect_cli.main --device cuda --isp_weights ...
+     --save_txt --save_img`` on 8 PNGs under ``build/cli_smoke`` (launch
+     counts read around it), its label files against a ``--device cpu``
+     run on the first 2;
+ 20. raw_unprocess: ``raw.unprocess.unprocess_batch`` at [8,512,512,3] on
+     the card, replayed with its metadata on the card and on the CPU;
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
@@ -122,7 +141,8 @@ launches by path, each path's counts set to 0 just before its run and
 read just after: serving, train_bf16, train_f32, render, trainer,
 train_isp, train_isp_host_pool, validation_b1_free, validation_b1_forced,
 validation_b8_blend, validation_b1_merge_tta, val_cli, hr_render,
-train_isp_val, fixed_pipeline, fixed_step_fused, kernel_sym; the CPU
+train_isp_val, fixed_pipeline, fixed_step_fused, rest, detect_cli,
+kernel_sym; the CPU
 comparisons' card runs count on none), the card's name and power limit,
 and as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, with no result line, without a CUDA device or
@@ -833,8 +853,8 @@ def phase_serving():
     from adaptiveisp_tpu_torch.ops.cuda import build
 
     cfg = Config()
-    isp = api.load_adaptive_isp(cfg, steps=STEPS, seed=0, device="cuda")
-    det = api.load_detector(YOLOV3_SPEC, seed=0, device="cuda")
+    isp = api.load_adaptive_isp(cfg=cfg, steps=STEPS, seed=0, device="cuda")
+    det = api.load_detector(spec=YOLOV3_SPEC, seed=0, device="cuda")
     images = torch.from_numpy(np.random.RandomState(1).rand(
         SERVE_BATCH, SERVE_SIZE, SERVE_SIZE, 3).astype(np.float32)).cuda()
     nms = dict(conf_thres=0.001, iou_thres=0.6, multi_label=True)
@@ -889,7 +909,7 @@ def phase_serving():
 
     # ---- step 0 against the port's own CPU run of the first 2 images ----
     res = isp.process_with_trace(images, pipeline=FORCED, seed=3)
-    cpu = api.load_adaptive_isp(cfg, steps=1, seed=0, device="cpu")
+    cpu = api.load_adaptive_isp(cfg=cfg, steps=1, seed=0, device="cpu")
     res_cpu = cpu.process_with_trace(images[:2].cpu(), pipeline=FORCED[:1],
                                      seed=3)
     step0 = res.images_per_step[0, :2].cpu()
@@ -909,10 +929,11 @@ def spread_detector_state(spec, seed: int):
     """Seeded YOLOv3 weights that keep activations of order 1 through the
     depth (convolutions normal with variance 1 / fan-in, BatchNorm scales
     and variances in [0.5, 1.5], other parameters normal with scale 0.1), as
-    the port's CPU tests seed theirs.  torch's default initialisation
-    saturates the full YOLOv3's head: its top 400 scores of an image take 3
-    distinct values, so which 300 boxes NMS keeps is a tie-break that
-    float32 noise decides, and mAP over them says nothing."""
+    the port's CPU tests seed theirs, so that the head's scores spread and
+    which boxes NMS keeps is not a tie-break that float32 noise decides.
+    torch's default initialisation saturated the head (its top 400 scores
+    of an image took 3 distinct values); these weights do not depend on
+    the constructor's initialisation."""
     import torch
 
     from adaptiveisp_tpu_torch.detect.model import DetectionModel
@@ -944,9 +965,9 @@ def phase_serving_map(cfg, isp, images, nms):
     from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
 
     sd = spread_detector_state(YOLOV3_SPEC, 7)
-    det = api.load_detector(YOLOV3_SPEC, device="cuda", state_dict=sd)
-    det_cpu = api.load_detector(YOLOV3_SPEC, device="cpu", state_dict=sd)
-    isp_cpu = api.load_adaptive_isp(cfg, steps=STEPS, seed=0, device="cpu")
+    det = api.load_detector(spec=YOLOV3_SPEC, device="cuda", state_dict=sd)
+    det_cpu = api.load_detector(spec=YOLOV3_SPEC, device="cpu", state_dict=sd)
+    isp_cpu = api.load_adaptive_isp(cfg=cfg, steps=STEPS, seed=0, device="cpu")
     out_g = isp.process(images, seed=4)
     out_c = isp_cpu.process(images.cpu(), seed=4)
     dets_g, n_g = (a.cpu().numpy() for a in det.detect(out_g, **nms))
@@ -1053,9 +1074,9 @@ def _train_setup(cfg, tcfg, size, batch, dtype, device, seed=0):
     )
     from adaptiveisp_tpu_torch.train.trainer import imgsz_hyp
 
-    agent = api.load_adaptive_isp(cfg, seed=seed, device=device).agent
+    agent = api.load_adaptive_isp(cfg=cfg, seed=seed, device=device).agent
     value = api.load_value(cfg, seed=seed + 1, device=device)
-    det = api.load_detector(YOLOV3_SPEC, seed=seed + 2, device=device,
+    det = api.load_detector(spec=YOLOV3_SPEC, seed=seed + 2, device=device,
                             dtype=dtype)
     tx = make_optimizer(tcfg.lr, tcfg.max_iter_step, tcfg.grad_clip_norm,
                         tcfg.lr_decay, tcfg.lr_segments)
@@ -1567,8 +1588,8 @@ def _eval_models(device, det_sd):
     from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
 
     cfg = Config()
-    return (cfg, api.load_adaptive_isp(cfg, seed=0, device=device).agent,
-            api.load_detector(YOLOV3_SPEC, device=device,
+    return (cfg, api.load_adaptive_isp(cfg=cfg, seed=0, device=device).agent,
+            api.load_detector(spec=YOLOV3_SPEC, device=device,
                               state_dict=det_sd).model)
 
 
@@ -1941,7 +1962,7 @@ def _fixed_run(device, det_sd, n, size, steps):
     )
     from adaptiveisp_tpu_torch.train.trainer import imgsz_hyp
 
-    yolo = api.load_detector(YOLOV3_SPEC, device=device,
+    yolo = api.load_detector(spec=YOLOV3_SPEC, device=device,
                              state_dict=det_sd).model
     batches = _fixed_batches(api.resolve_device(device), n, size, 80)
     build.reset_launches()
@@ -2138,7 +2159,7 @@ def phase_detector_train(smi):
         vds = DetectorDataset(str(root / "val" / "images"),
                               img_size=DET_SIZE, batch_size=DET_BATCH,
                               augment=False, nc=80)
-        model = api.load_detector(YOLOV3_SPEC, seed=0, device="cuda").model
+        model = api.load_detector(spec=YOLOV3_SPEC, seed=0, device="cuda").model
         return DetectorTrainer(model, YOLOV3_SPEC, tds, vds, cfg=cfg,
                                save_dir=str(root / save), save_period=1,
                                device="cuda")
@@ -2263,7 +2284,7 @@ def phase_detector_vs_cpu():
                          augment=False, nc=80)
     batches = [b for _, b in zip(range(DET_CPU_STEPS),
                                  ds.epoch_batches(shuffle=False))]
-    base = api.load_detector(YOLOV3_SPEC, seed=0, device="cpu").model
+    base = api.load_detector(spec=YOLOV3_SPEC, seed=0, device="cpu").model
     tx, _ = make_warmup_optimizer(DetTrainConfig(), 100)
     step = make_detector_train_step(anchors_in_grid_units(YOLOV3_SPEC),
                                     LossHyp(obj=(DET_CPU_SIZE / 640) ** 2))
@@ -2372,6 +2393,397 @@ def phase_detector_cli():
     return rec
 
 
+# the inference surface: the hub's models at 640 px, the REST server and
+# the detect CLI at the service size with an agent that picks denoise at
+# every step (the seeded Config() agent, seed 0, with denoise's selector
+# bias fc2.bias raised by DENOISE_BOOST), RAW synthesis at batch 8 @ 512
+HUB_SIZE = 640
+HUB_MODELS = ("yolov3", "yolov3_spp", "yolov5s")
+HUB_ATOL = {"box_px": 0.05, "conf": 1e-4}
+DENOISE_BOOST = 8.0
+REST_SIZES = ((512, 512), (384, 640), (480, 360), (300, 500), (720, 540),
+              (256, 256), (341, 600), (600, 400))   # (h, w) of the 8 PNGs
+CLI_IMAGES, CLI_CPU_IMAGES = 8, 2
+RAW_SHAPE = (8, 512, 512, 3)
+
+
+def _decoded_err(det_g, det_c, x):
+    """max |card - CPU| of two detectors' decoded candidates on x (boxes
+    in pixels, then objectness and class scores)."""
+    import torch
+
+    with torch.no_grad():
+        g = det_g.decoded(x.cuda()).cpu()
+        c = det_c.decoded(x)
+    return {"box_px": float((g[..., :4] - c[..., :4]).abs().max()),
+            "conf": float((g[..., 4:] - c[..., 4:]).abs().max()),
+            "candidates": int(g.shape[1])}
+
+
+def _rows_err(got, want, max_det: int = 300):
+    """Detection rows [n, 6] of the card against the CPU's, as multisets:
+    the counts equal, the sorted scores within HUB_ATOL, and each card row
+    matched to a CPU row of its class within HUB_ATOL (box error the
+    largest over the matches).  Scores of random detectors cluster
+    (within 1e-6 of each other), so rows of nearly equal score come in
+    either order, and when ``max_det`` rows are kept, which of the
+    candidates within 1e-4 of the lowest kept score make the cut is a
+    tie-break: those rows are not matched (``at_cut``).  None when the
+    counts differ."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return None
+    if not len(got):
+        return {"box_px": 0.0, "conf": 0.0, "unmatched": 0, "at_cut": 0}
+    cut = (min(got[:, 4].min(), want[:, 4].min()) + HUB_ATOL["conf"]
+           if len(got) >= max_det else -np.inf)
+    used = np.zeros(len(want), bool)
+    box, unmatched = 0.0, 0
+    for r in got[got[:, 4] > cut]:
+        cand = np.flatnonzero(~used & (want[:, 5] == r[5]) & (np.abs(
+            want[:, 4] - r[4]) <= HUB_ATOL["conf"]))
+        d = (np.abs(want[cand, :4] - r[:4]).max(1) if len(cand)
+             else np.zeros(0))
+        if len(d) and d.min() <= HUB_ATOL["box_px"]:
+            used[cand[d.argmin()]] = True
+            box = max(box, float(d.min()))
+        else:
+            unmatched += 1
+    return {"box_px": box, "conf": float(np.abs(
+        np.sort(got[:, 4]) - np.sort(want[:, 4])).max()),
+        "unmatched": unmatched, "at_cut": int((got[:, 4] <= cut).sum())}
+
+
+def _within(err):
+    return (err is not None and all(err[k] <= HUB_ATOL[k] for k in HUB_ATOL)
+            and not err.get("unmatched"))
+
+
+def phase_hub():
+    """The hub constructors on the card at full width and 640 px
+    (``api.yolov3()``, ``api.yolov3_spp()``, ``api.yolov5s()``), each with
+    ``spread_detector_state`` weights (a fresh detector's head scores all
+    sit near 0.25, so NMS would keep boxes by float32 tie-breaks): each
+    forward's decoded predictions against the same state_dict on the CPU
+    (float32 sums in another order through up to 75 layers: boxes within
+    0.05 px of a 640 px frame, scores within 1e-4); ``Detector.__call__``
+    on a path, a PIL image and a uint8 array against the CPU's (rows as
+    multisets, ``_rows_err``); an NMS
+    ensemble of two YOLOv3 weight files written under ``build/hub_smoke``
+    against the CPU's.  Returns the first weight file's path."""
+    import torch
+    from PIL import Image
+
+    from adaptiveisp_tpu_torch import api
+
+    root = Path(__file__).resolve().parent / "build" / "hub_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.rand(1, HUB_SIZE, HUB_SIZE, 3).astype(
+        np.float32))
+    models, dets = {}, {}
+    for i, name in enumerate(HUB_MODELS):
+        det = getattr(api, name)(device="cuda")
+        sd = spread_detector_state(det.spec, 7 + i)
+        det.model.load_state_dict(sd)
+        cpu = api.load_detector(spec=det.spec, device="cpu", state_dict=sd)
+        xg = x.cuda()
+        with torch.no_grad():
+            ms = cuda_time_ms(lambda: det.decoded(xg), REPS)
+        err = _decoded_err(det, cpu, x)
+        models[name] = {"params": sum(p.numel()
+                                      for p in det.model.parameters()),
+                        "forward_ms": ms, **err, "ok": _within(err)}
+        dets[name] = (det, cpu, sd)
+    det, cpu, sd0 = dets["yolov3"]
+    path = root / "hub.png"
+    Image.fromarray(rng.randint(0, 256, (480, 640, 3), np.uint8)).save(path)
+    sources = [str(path),
+               Image.fromarray(rng.randint(0, 256, (360, 500, 3), np.uint8)),
+               rng.randint(0, 256, (400, 300, 3), np.uint8)]
+    res_g, res_c = det(sources, size=HUB_SIZE), cpu(sources, size=HUB_SIZE)
+    call_errs = [_rows_err(g, c) for g, c in zip(res_g.xyxy, res_c.xyxy)]
+    weights = [root / "yolov3_spread7.pt", root / "yolov3_spread10.pt"]
+    for w, sd in zip(weights, (sd0, spread_detector_state(det.spec, 10))):
+        torch.save({"model": sd}, w)
+    ens = api.load_detector(weights=[str(w) for w in weights],
+                            device="cuda")
+    ens_c = api.load_detector(weights=[str(w) for w in weights],
+                              device="cpu")
+    ens_err = _decoded_err(ens, ens_c, x)
+    rec = {"phase": "hub", "size": HUB_SIZE, "models": models,
+           "call_detections": [len(d) for d in res_g.xyxy],
+           "call_errs": call_errs, "ensemble": ens_err,
+           "ensemble_members": len(ens.model), "atol": HUB_ATOL}
+    emit(rec)
+    ok = (all(m["ok"] for m in models.values())
+          and all(_within(e) for e in call_errs) and len(res_g) == 3
+          and all(len(d) for d in res_g.xyxy)
+          and _within(ens_err) and ens_err["candidates"]
+          == 2 * models["yolov3"]["candidates"])
+    if not ok:
+        raise AssertionError(f"hub: {rec}")
+    return weights[0]
+
+
+def _denoise_agent(cfg):
+    """The seeded Config() agent (seed 0) with denoise's selector bias
+    raised by DENOISE_BOOST: argmax picks denoise at every step."""
+    from adaptiveisp_tpu_torch import api
+
+    sd = api.load_adaptive_isp(cfg=cfg, seed=0, device="cpu").agent \
+        .state_dict()
+    sd["fc2.bias"] = sd["fc2.bias"].clone()
+    sd["fc2.bias"][cfg.filters.index("denoise")] += DENOISE_BOOST
+    return sd
+
+
+def _png_bytes(rng, h, w):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(
+        buf, format="PNG")
+    return buf.getvalue()
+
+
+def phase_rest(weights):
+    """``serve.rest`` on port 0 on the card: full YOLOv3 (the hub phase's
+    ``spread_detector_state`` weights file), the
+    denoising agent from a weights file at the service size (512), so each
+    request letterboxes, runs the 5-step rollout (K1 at each step) and
+    detects.  One warm-up request, then 8 POSTs of PNGs of different sizes
+    (launch counts read around them), one /healthz and one body that is
+    not an image (400).  Every answer equals the in-process
+    ``rest.infer`` with the same detector and agent on the card; the
+    latency median and p90 per request; one in-process request under the
+    profiler (device kernel time, K1's share, launches; its wall time
+    carries the profiler's own start-up)."""
+    import contextlib
+    import io
+    import urllib.error
+    import urllib.request
+
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.serve import rest
+
+    root = Path(__file__).resolve().parent / "build" / "rest_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = Config()
+    agent = root / "agent.pt"
+    torch.save({"agent_model": _denoise_agent(cfg)}, agent)
+    rng = np.random.RandomState(12)
+    bodies = [_png_bytes(rng, h, w) for h, w in REST_SIZES]
+
+    def post(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{rest.ROUTE}", data=body,
+            method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    with contextlib.redirect_stdout(sys.stderr):
+        srv = rest.serve(weights=str(weights), spec=YOLOV3_SPEC, port=0,
+                         size=SERVE_SIZE, isp_weights=str(agent),
+                         device="cuda")
+    try:
+        warm = post(srv.port, bodies[0])
+        torch.cuda.synchronize()
+        build.reset_launches()
+        answers, lat = [], []
+        for body in bodies:
+            t0 = time.perf_counter()
+            answers.append(post(srv.port, body))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(build.LAUNCHES)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        bad = post(srv.port, b"not an image")
+    finally:
+        srv.stop()
+    # the same requests in process, in the same order (the agent's noise
+    # stream advances per request)
+    det = api.load_detector(weights=str(weights), spec=YOLOV3_SPEC,
+                            device="cuda")
+    isp = api.load_adaptive_isp(str(agent), cfg=cfg, device="cuda")
+
+    def image(body):
+        return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"),
+                          np.float32) / 255.0
+
+    want = [rest.infer(det, image(b), SERVE_SIZE, 0.25, isp)
+            for b in bodies[:1] + bodies]
+    equal = ([warm[1]] + [a[1] for a in answers]) == want
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rest.infer(det, image(bodies[0]), SERVE_SIZE, 0.25, isp)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    nlm_ms = sum(k[0] for k in kernels if "nlm" in k[1].lower()) / 1e3
+    codes = [warm[0]] + [a[0] for a in answers]
+    rec = {"phase": "rest", "size": SERVE_SIZE, "requests": len(bodies),
+           "image_hw": [list(s) for s in REST_SIZES], "codes": codes,
+           "detections": [len(a[1]) for a in answers],
+           "latency_ms": lat, "latency_ms_median": float(np.median(lat)),
+           "latency_ms_p90": float(np.percentile(lat, 90)),
+           "launches": launches, "healthz": health, "bad_body": bad[0],
+           "equal_in_process": equal,
+           "profiled_request": {
+               "wall_ms": wall_ms, "device_kernel_ms": device_ms,
+               "nlm_kernel_ms": nlm_ms,
+               "kernel_launches": sum(k[2] for k in kernels),
+               "device_share_of_median_latency":
+                   device_ms / float(np.median(lat)),
+               "top_kernels": [{"name": k[1][:90], "ms": k[0] / 1e3,
+                                "count": k[2]} for k in kernels[:8]]},
+           "agent": f"seeded Config() agent, fc2.bias[denoise] "
+                    f"+{DENOISE_BOOST}"}
+    emit(rec)
+    if (any(c != 200 for c in codes) or bad[0] != 400
+            or health != {"status": "ok"} or not equal
+            or launches["nlm_gray_fwd"] != STEPS * len(bodies)):
+        raise AssertionError(f"rest: {rec}")
+    return launches, agent
+
+
+def _cli_labels(d):
+    return {p.name: np.loadtxt(p, ndmin=2) for p in sorted(d.glob("*.txt"))}
+
+
+def phase_detect_cli(weights, agent):
+    """``detect_cli.main`` (``python -m adaptiveisp_tpu_torch.detect_cli``,
+    in process so that its launches are counted) with ``--device cuda
+    --isp_weights`` (the rest phase's denoising agent) ``--save_txt
+    --save_img`` on 8 PNGs of different sizes at 512 px, the hub phase's
+    YOLOv3 file as ``--weights``; then ``--device cpu`` on the
+    first 2 of them (its NLM at 512 px is seconds a call on the host): the
+    same label files, rows within the hub phase's tolerances as multisets
+    (``_rows_err``).  The frame
+    loop is timed apart from the set-up (weights, agent, cuDNN plans)."""
+    import contextlib
+    import shutil
+
+    import torch
+    from PIL import Image
+
+    from adaptiveisp_tpu_torch import detect_cli
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    images, cpu_images = root / "images", root / "images_cpu"
+    images.mkdir(parents=True)
+    cpu_images.mkdir()
+    rng = np.random.RandomState(13)
+    for i, (h, w) in enumerate(REST_SIZES[:CLI_IMAGES]):
+        im = Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8))
+        im.save(images / f"frame{i}.png")
+        if i < CLI_CPU_IMAGES:
+            im.save(cpu_images / f"frame{i}.png")
+    base = ["--weights", str(weights), "--isp_weights", str(agent),
+            "--imgsz", str(SERVE_SIZE), "--save_txt", "--save_img",
+            "--exist_ok"]
+    frames_s = []
+    run_source = detect_cli._run_source
+
+    def timed_frames(*a, **k):  # the frame loop, without the set-up
+        t = time.perf_counter()
+        run_source(*a, **k)
+        torch.cuda.synchronize()
+        frames_s.append(time.perf_counter() - t)
+
+    detect_cli._run_source = timed_frames
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            out = detect_cli.main(["--source", str(images), "--device",
+                                   "cuda", "--save_dir", str(root / "cuda")]
+                                  + base)
+    finally:
+        detect_cli._run_source = run_source
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out_c = detect_cli.main(["--source", str(cpu_images), "--device",
+                                 "cpu", "--save_dir", str(root / "cpu")]
+                                + base)
+    cpu_secs = time.perf_counter() - t0
+    got, want = _cli_labels(Path(out)), _cli_labels(Path(out_c))
+    errs = {k: _rows_err(got.get(k, np.zeros((0, 6))), v)
+            for k, v in want.items()}
+    pngs = sorted(p.name for p in Path(out).glob("*.png"))
+    rec = {"phase": "detect_cli", "frames": CLI_IMAGES,
+           "seconds": secs, "frames_seconds": sum(frames_s),
+           "ms_per_frame": sum(frames_s) * 1e3 / CLI_IMAGES,
+           "launches": launches, "labels": len(got), "images_saved":
+           len(pngs), "detections": {k: len(v) for k, v in got.items()},
+           "cpu_frames": CLI_CPU_IMAGES, "cpu_seconds": cpu_secs,
+           "vs_cpu": errs, "atol": HUB_ATOL}
+    emit(rec)
+    if (len(got) != CLI_IMAGES or len(pngs) != CLI_IMAGES
+            or len(want) != CLI_CPU_IMAGES
+            or not all(_within(e) for e in errs.values())
+            or launches["nlm_gray_fwd"] != STEPS * CLI_IMAGES):
+        raise AssertionError(f"detect_cli: {rec}")
+    return launches
+
+
+def phase_raw_unprocess():
+    """``raw.unprocess.unprocess_batch`` at [8,512,512,3] on the card (one
+    draw per image from a CUDA generator, log noise, brightness in [0.1,
+    0.3]), then again on the card and on the CPU with that metadata and
+    noise field: within 1e-5 (transcendentals a few ulp apart, times
+    gains up to about 3); the card's call timed."""
+    import torch
+
+    from adaptiveisp_tpu_torch.raw import unprocess as un
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(RAW_SHAPE, generator=g, device="cuda")
+    noise = torch.randn(RAW_SHAPE, generator=g, device="cuda")
+    kw = dict(add_noise=True, brightness_range=(0.1, 0.3))
+    drawn, meta = un.unprocess_batch(x, generator=g, noise=noise, **kw)
+    out, _ = un.unprocess_batch(x, meta=meta, noise=noise, **kw)
+    ms = cuda_time_ms(lambda: un.unprocess_batch(x, meta=meta, noise=noise,
+                                                 **kw), REPS)
+    cpu, _ = un.unprocess_batch(
+        x.cpu(), meta=un.RawMetadata(*(f.cpu() for f in meta)),
+        noise=noise.cpu(), **kw)
+    err = float((out.cpu() - cpu).abs().max())
+    rec = {"phase": "raw_unprocess", "shape": list(RAW_SHAPE),
+           "max_abs_err": err, "atol": 1e-5,
+           "replay_vs_drawn": float((out - drawn).abs().max()),
+           "call_ms": ms, "finite": bool(torch.isfinite(out).all()),
+           "range": [float(out.min()), float(out.max())],
+           "gains": {k: [float(v.min()), float(v.max())] for k, v in
+                     (("red", meta.red_gain), ("blue", meta.blue_gain),
+                      ("brightness", meta.gain))}}
+    emit(rec)
+    if not (err <= 1e-5 and rec["finite"] and rec["range"][0] >= 0.0
+            and rec["range"][1] <= 1.0 and tuple(out.shape) == RAW_SHAPE):
+        raise AssertionError(f"raw_unprocess: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -2411,6 +2823,11 @@ def main() -> int:
         timed("detector_train", phase_detector_train, smi)
         timed("detector_vs_cpu", phase_detector_vs_cpu)
         timed("detector_cli", phase_detector_cli)
+        hub_weights = timed("hub", phase_hub)
+        rest_launches, agent_file = timed("rest", phase_rest, hub_weights)
+        cli_launches = timed("detect_cli", phase_detect_cli, hub_weights,
+                             agent_file)
+        timed("raw_unprocess", phase_raw_unprocess)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
@@ -2423,7 +2840,8 @@ def main() -> int:
                   **{f"validation_{k}": v for k, v in validation.items()},
                   "val_cli": val_cli, "hr_render": hr,
                   "train_isp_val": train_isp_val, "fixed_pipeline": fixed,
-                  "fixed_step_fused": fixed_fused}
+                  "fixed_step_fused": fixed_fused, "rest": rest_launches,
+                  "detect_cli": cli_launches}
 
     def entry(name, counter, source, replaces, cases, err_key, paths,
               ms_key="ms"):

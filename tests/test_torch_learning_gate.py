@@ -13,8 +13,9 @@ The arc of ``tests/test_rl_learning_gate.py`` with the port's modules, on
 
 Gates, thresholds and data are the JAX test's (its CPU reference: bright
 0.944, degraded raw 0.334, untrained agent 0.388, fixed pipeline 0.573,
-trained agent 0.804).  The seeds are fixed; the detector starts from the
-port's own seeded initialisation.  This file imports no JAX, so that it
+trained agent 0.804).  The seeds are fixed; the detector, the agent and
+the critic start from a seeded draw of flax's initial distributions
+(``nn_init.flax_init_``), as the JAX package's networks do.  This file imports no JAX, so that it
 runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m slow \\
@@ -93,7 +94,7 @@ def _pretrain_detector(root, dev):
                                      translate=0.05, scale=0.2))
     vds = DetectorDataset(f"{root}/images/val", img_size=SIZE,
                           batch_size=8, augment=False, nc=2)
-    model = api.load_detector(SPEC, seed=0, device=dev).model
+    model = api.load_detector(spec=SPEC, seed=0, device=dev).model
     tr = DetectorTrainer(
         model, SPEC, tds, vds,
         cfg=DetTrainConfig(epochs=110, batch_size=8, lr0=0.01,

@@ -69,10 +69,10 @@ def chains():
         return jnms(jdecode(jyolo.apply(v, x, train=False), YOLOV3_TINY_SPEC),
                     **NMS)
 
-    isp = api.load_adaptive_isp(CFG, steps=STEPS, device="cpu",
+    isp = api.load_adaptive_isp(cfg=CFG, steps=STEPS, device="cpu",
                                 state_dict=agent_from_flax(
                                     av["params"], av["batch_stats"], CFG))
-    det = api.load_detector(YOLOV3_TINY_SPEC, device="cpu",
+    det = api.load_detector(spec=YOLOV3_TINY_SPEC, device="cpu",
                             state_dict=yolo_from_flax(
                                 yv["params"], yv["batch_stats"],
                                 YOLOV3_TINY_SPEC))

@@ -273,7 +273,8 @@ def test_train_isp_cli_one_step(tmp_path, monkeypatch):
     """``python -m adaptiveisp_tpu_torch.train_isp --device cpu
     --max_steps 1`` on a toy data YAML (tiny detector, reduced roster):
     iterations 0 and 1 run; ``--task val`` renders the validation set at
-    full resolution; dp refuses with its queue item."""
+    full resolution; dp refuses with its queue item; ``--yolo_spec`` takes
+    the zoo's names."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     monkeypatch.chdir(tmp_path)
     _toy_set(tmp_path / "toy")
@@ -294,5 +295,11 @@ def test_train_isp_cli_one_step(tmp_path, monkeypatch):
     assert len(os.listdir(os.path.join(out, "step-0"))) == 10
     with pytest.raises(SystemExit, match="P15"):
         train_isp.main(base + ["--dp", "2"])
-    with pytest.raises(NotImplementedError):
-        train_isp.main(base[:-6] + ["--yolo_spec", "yolov5s"])
+    # any spec of the zoo trains; a name that is neither a spec nor a file
+    # raises
+    spec_at = base.index("yolov3-tiny")
+    tr = train_isp.main(base[:spec_at] + ["yolov5n"] + base[spec_at + 1:]
+                        + ["--max_steps", "0"])
+    assert tr.yolo_spec["width_multiple"] == 0.25 and tr.state.step == 1
+    with pytest.raises(FileNotFoundError):
+        train_isp.main(base[:spec_at] + ["yolov9"] + base[spec_at + 1:])
