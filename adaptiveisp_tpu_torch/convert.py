@@ -7,7 +7,9 @@ return a ``state_dict`` for the port's ``policy.agent.Agent``,
 are the original AdaptiveISP / ultralytics names, so
 ``adaptiveisp_tpu/detect/convert.py`` (``convert_agent_state_dict``,
 ``convert_value_state_dict``, ``convert_yolo_state_dict``) inverts these
-exactly.
+exactly (the Segment head's Proto tower included).
+``classifier_from_flax`` does the same for ``classify.ClassificationModel``;
+the JAX package has no converter for its classifier.
 
 Layout transforms (the inverse of that module's):
   * conv kernel HWIO [kh, kw, I, O] -> [O, I, kh, kw]
@@ -173,4 +175,30 @@ def yolo_from_flax(params, batch_stats, spec) -> Dict[str, torch.Tensor]:
         prefix = f"model.{m.group(1)}" + (
             f".{m.group(2)}" if m.group(2) is not None else "")
         emit(prefix, ptree, batch_stats.get(lname, {}))
+    return sd
+
+
+def classifier_from_flax(params, batch_stats, spec=None,
+                         cutoff=None) -> Dict[str, torch.Tensor]:
+    """flax ClassificationModel variables -> state_dict of the port's
+    ``classify.ClassificationModel``: the trunk ``backbone/trunk/l{i}`` ->
+    ``model.{i}.*`` (as :func:`yolo_from_flax`), ``head_conv`` ->
+    ``model.{k}.conv.*`` and ``head_linear`` -> ``model.{k}.linear.*``, k the
+    number of backbone rows kept (``spec`` defaults to YOLOv3-tiny's, as
+    the JAX model's)."""
+    from adaptiveisp_tpu_torch.classify import trunk_spec
+
+    tspec = trunk_spec(spec, cutoff)
+    k = len(tspec["backbone"])
+    # the JAX trunk ends in an Identity row: count it as a layer
+    sd = yolo_from_flax(params["backbone"]["trunk"],
+                        batch_stats["backbone"]["trunk"],
+                        dict(tspec, head=[[-1, 1, "Identity", []]]))
+    head = params["head_conv"]
+    sd[f"model.{k}.conv.conv.weight"] = _conv(head["conv"]["kernel"])
+    _bn(sd, f"model.{k}.conv.bn", head["bn"],
+        batch_stats["head_conv"]["bn"])
+    sd[f"model.{k}.linear.weight"] = _linear(
+        params["head_linear"]["kernel"])
+    sd[f"model.{k}.linear.bias"] = _t(params["head_linear"]["bias"])
     return sd

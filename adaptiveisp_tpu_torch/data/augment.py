@@ -189,8 +189,8 @@ def bbox_ioa(box: np.ndarray, boxes: np.ndarray,
 
 def polygon2mask(shape: Tuple[int, int], polygon: np.ndarray) -> np.ndarray:
     """Rasterise one polygon (pixel coordinates) to a float {0, 1} mask of
-    ``shape`` (h, w), with PIL (the segment dataset's helper; the segment
-    dataset itself is not ported)."""
+    ``shape`` (h, w), with PIL (cv2.fillPoly in the reference); shared with
+    ``segment_dataset``."""
     from PIL import Image, ImageDraw
 
     im = Image.new("L", (shape[1], shape[0]), 0)

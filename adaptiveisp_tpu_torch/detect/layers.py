@@ -1,8 +1,9 @@
 """The YOLO layer zoo (port of ``adaptiveisp_tpu/detect/layers.py``):
 Conv (conv + BN + act), DWConv, Bottleneck, CrossConv, GhostConv,
 GhostBottleneck, TransformerLayer / TransformerBlock, C3 with its C3x /
-C3TR / C3SPP / C3Ghost variants, BottleneckCSP, SPP, SPPF, Focus, and the
-parameter-free Upsample, Concat, MaxPool, ZeroPad, Contract and Expand.
+C3TR / C3SPP / C3Ghost variants, BottleneckCSP, SPP, SPPF, Focus, the
+segmentation head's Proto tower, and the parameter-free Upsample, Concat,
+MaxPool, ZeroPad, Contract and Expand.
 
 NCHW inside, ultralytics child names (``conv``, ``bn``, ``cv1``..``cv4``,
 ``m.{r}``, GhostBottleneck's ``conv.{j}`` / ``shortcut.{j}``, the
@@ -361,11 +362,31 @@ class Lambda(nn.Module):
         return self.fn(x, *self.args)
 
 
+def upsample_nearest_2x(x):
+    """Nearest-neighbour 2x upsample of an NCHW map."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
 class Upsample(nn.Module):
     """Nearest-neighbour 2x upsample."""
 
     def forward(self, x):
-        return F.interpolate(x, scale_factor=2, mode="nearest")
+        return upsample_nearest_2x(x)
+
+
+class Proto(nn.Module):
+    """Mask prototype tower of the segmentation head: Conv3x3 -> nearest 2x
+    -> Conv3x3 -> Conv1x1 to ``nm`` channels (children ``cv1``..``cv3``)."""
+
+    def __init__(self, c1: int, npr: int = 256, nm: int = 32,
+                 act: Any = True):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, npr, 3, 1, act=act)
+        self.cv2 = ConvBNAct(npr, npr, 3, 1, act=act)
+        self.cv3 = ConvBNAct(npr, nm, 1, 1, act=act)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(upsample_nearest_2x(self.cv1(x))))
 
 
 class Concat(nn.Module):

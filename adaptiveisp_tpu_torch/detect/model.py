@@ -1,13 +1,15 @@
-"""Spec-driven YOLO detection model (port of
-``adaptiveisp_tpu/detect/model.py``; the Segment head waits for the segment
-slice).
+"""Spec-driven YOLO detection and segmentation model (port of
+``adaptiveisp_tpu/detect/model.py``).
 
 ``DetectionModel`` builds the layer list of a spec as an ``nn.ModuleList``
 named ``model`` (a row repeated n > 1 times is an ``nn.Sequential``), so the
 state-dict keys are ultralytics' ``model.{i}.*`` / ``model.{i}.{r}.*``.  It
 takes NHWC images, runs NCHW inside, and returns the raw per-level logits in
 the JAX package's order [N, ny, nx, na, no] (not ultralytics'
-[N, na, ny, nx, no]): candidate order feeds NMS top-k and its ties.
+[N, na, ny, nx, no]): candidate order feeds NMS top-k and its ties.  A
+``Segment`` head returns ``(preds, proto)``: each level carries ``nm`` mask
+coefficients after the class scores, and ``proto`` is the prototype masks
+[N, mh, mw, nm] at twice the first level's resolution.
 In train mode (``model.train()``) it returns the same raw per-level logits
 with BatchNorm on the batch's statistics (flax's, see ``layers.py``): the
 JAX model's ``train=True`` forward, which ``loss.batch_loss`` takes.
@@ -39,6 +41,7 @@ from adaptiveisp_tpu_torch.detect.layers import (
     GhostConv,
     Lambda,
     MaxPool,
+    Proto,
     Upsample,
     ZeroPad,
     contract,
@@ -70,6 +73,22 @@ class Detect(nn.Module):
                 outs.append(y.view(n, self.na, self.no, ny, nx)
                             .permute(0, 3, 4, 1, 2).contiguous())
         return outs
+
+
+class SegmentHead(Detect):
+    """Detect with ``nm`` mask coefficients per anchor and the Proto tower
+    (child ``proto``) on the first input; returns ``(preds, proto)``, proto
+    NHWC float32."""
+
+    def __init__(self, nc: int, na: int, chs: Sequence[int], nm: int = 32,
+                 npr: int = 256, act=True):
+        super().__init__(nc + nm, na, chs)
+        self.nc, self.nm = nc, nm
+        self.proto = Proto(chs[0], npr, nm, act)
+
+    def forward(self, xs):
+        proto = self.proto(xs[0]).float().permute(0, 2, 3, 1).contiguous()
+        return super().forward(xs), proto
 
 
 def _arg(args, i, default):
@@ -182,15 +201,17 @@ class DetectionModel(nn.Module):
             elif mod == "Detect":
                 m, c2 = Detect(nc, na, [ch[j] for j in frm]), None
             elif mod == "Segment":
-                raise NotImplementedError(
-                    "the Segment head is not ported yet (ROADMAP: the "
-                    "segment and classify slice)")
+                m, c2 = SegmentHead(nc, na, [ch[j] for j in frm],
+                                    nm=_arg(args, 2, 32),
+                                    npr=width(_arg(args, 3, 256)),
+                                    act=act), None
             else:
                 raise ValueError(f"Unknown module {mod}")
             layers.append(m)
             ch.append(c2)
             self.froms.append(frm)
         self.model = nn.ModuleList(layers)
+        self.channels = ch  # each row's output channels (None: the head)
         flax_init_(self)
 
     def forward(self, x_nhwc):

@@ -15,7 +15,8 @@ Same semantics and defaults as the JAX version, batched over images:
   * ``merge=True`` (merge-NMS) replaces each kept box by the score-weighted
     mean of the candidates overlapping it.
 
-Returns padded [N, max_det, 6] (xyxy, conf, cls) and a count per image.
+Returns padded [N, max_det, 6] (xyxy, conf, cls) and a count per image;
+with ``nm`` mask coefficients, also their rows [N, max_det, nm].
 """
 
 from __future__ import annotations
@@ -47,8 +48,10 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
                         iou_thres: float = 0.45, max_det: int = 300,
                         max_nms: int = 4096, multi_label: bool = False,
                         agnostic: bool = False, classes=None,
-                        merge: bool = False):
-    """prediction: [N, n_boxes, 5 + nc] decoded (xywh, obj, class probs).
+                        merge: bool = False, nm: int = 0):
+    """prediction: [N, n_boxes, 5 + nc (+ nm)] decoded (xywh, obj, class
+    probs, and with nm > 0 the raw mask coefficients of a segmentation
+    head).
 
     ``classes`` (sequence of class ids) keeps only those classes: in the
     multi-label path disallowed pairs score 0; in the single-label path a
@@ -59,10 +62,14 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
     survivors are compacted in score order; an image merges only when it
     has 1 < candidates < 3000 (the reference's cost guard, kept for
     parity).
-    Returns (detections [N, max_det, 6], n_valid [N] int32).
+    Returns (detections [N, max_det, 6], n_valid [N] int32); with nm > 0
+    a third output holds each kept detection's mask coefficients
+    [N, max_det, nm] (zero on padding rows).
     """
     n_img, n_box, no = prediction.shape
-    nc = no - 5
+    nc = no - 5 - nm
+    extra = prediction[..., 5 + nc:]
+    prediction = prediction[..., :5 + nc]
     dev = prediction.device
     obj = prediction[..., 4]
     cand = obj > conf_thres
@@ -82,6 +89,7 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
         top_scores, top_i = _top_k(scores, k)
         top_boxes = _take(box, top_i // nc)
         top_cls = (top_i % nc).to(prediction.dtype)
+        top_extra = _take(extra, top_i // nc)
     else:
         best_cls = torch.argmax(cls_conf, dim=-1)
         scores = torch.gather(cls_conf, 2, best_cls[..., None])[..., 0]
@@ -92,6 +100,7 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
         top_scores, top_i = _top_k(scores, k)
         top_boxes = _take(box, top_i)
         top_cls = torch.gather(best_cls, 1, top_i).to(prediction.dtype)
+        top_extra = _take(extra, top_i)
     top_valid = top_scores > conf_thres
 
     offset = torch.zeros_like(top_cls) if agnostic else top_cls * MAX_WH
@@ -164,4 +173,10 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
         torch.gather(top_cls, 1, sel)[..., None],
     ], dim=-1)
     out = torch.where(det_valid[..., None], out, torch.zeros_like(out))
-    return out, det_valid.sum(dim=1, dtype=torch.int32)
+    n_valid = det_valid.sum(dim=1, dtype=torch.int32)
+    if nm:
+        out_extra = _take(top_extra, sel)
+        out_extra = torch.where(det_valid[..., None], out_extra,
+                                torch.zeros_like(out_extra))
+        return out, n_valid, out_extra
+    return out, n_valid

@@ -6,7 +6,9 @@ out ``ClipAdam``: per parameter group an optional coupled weight decay
 (``g + wd * p``, optax ``add_decayed_weights`` before the transform), then
 SGD with a Nesterov trace (``t = g + mu * t``, update ``g + mu * t``), Adam
 (decay coupled as above), or AdamW (decay ``wd * p`` added after the
-moments, scaled by lr), and ``p += -lr * update``.  Learning rate and
+moments, scaled by lr), and ``p += -lr * update``; or optax's RMSProp
+(``nu = 0.1 g^2 + 0.9 nu`` from zero, ``u = -lr * g * rsqrt(nu + eps)``,
+then a plain trace ``t = u + mu * t`` and ``p += t``).  Learning rate and
 momentum are schedules of the update count, read before the update as
 ``optax.inject_hyperparams`` reads them, in float32 arithmetic.
 
@@ -71,19 +73,27 @@ def layer_id(name: str) -> Optional[int]:
 
 
 class DetectorOptimizer(torch.optim.Optimizer):
-    """optax's SGD / Adam / AdamW over named parameter groups.
+    """optax's SGD / Adam / AdamW / RMSProp over named parameter groups.
 
     groups: dicts with ``params``, ``name`` (the key of ``schedules``),
     ``weight_decay`` and ``frozen`` (updates zeroed after the transform, as
     optax ``masked(set_to_zero())``: the state still moves).  schedules:
     ``name -> (lr(count), momentum(count))``, each returning a float32
-    tensor; momentum is SGD's trace decay (Adam's b1 is ``b1``)."""
+    tensor; momentum is SGD's and RMSProp's trace decay (Adam's b1 is
+    ``b1``); RMSProp's second-moment decay is optax's default,
+    ``RMS_DECAY``.  ``hyper_f32``: Adam's betas are float32 arrays, as
+    ``optax.inject_hyperparams`` makes them (``1 - b`` rounds in float32);
+    False for Python-float betas (``1 - b`` in double, then float32)."""
+
+    KINDS = ("SGD", "Adam", "AdamW", "RMSProp")
+    RMS_DECAY = 0.9
 
     def __init__(self, groups: List[dict], schedules: Dict[str, tuple],
                  kind: str = "SGD", b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
-        if kind not in ("SGD", "Adam", "AdamW"):
+                 eps: float = 1e-8, hyper_f32: bool = True):
+        if kind not in self.KINDS:
             raise ValueError(f"unknown optimizer {kind!r}")
+        self.hyper_f32 = hyper_f32
         super().__init__(groups, {"weight_decay": 0.0, "frozen": False})
         self.schedules = schedules
         self.kind, self.b1, self.b2, self.eps = kind, b1, b2, eps
@@ -99,11 +109,13 @@ class DetectorOptimizer(torch.optim.Optimizer):
     def step(self, closure=None):
         t = self.count
         self.count += 1
-        if self.kind != "SGD":
-            # b1 and b2 are float32 hyperparameters: 1 - b in float32
+        if self.kind in ("Adam", "AdamW"):
             b1, b2 = f32(self.b1), f32(self.b2)
             c = f32(t + 1)
-            omb1, omb2 = float(1.0 - b1), float(1.0 - b2)
+            if self.hyper_f32:
+                omb1, omb2 = float(1.0 - b1), float(1.0 - b2)
+            else:
+                omb1, omb2 = 1.0 - self.b1, 1.0 - self.b2
             bc1 = float(1.0 - torch.pow(b1, c))
             bc2 = float(1.0 - torch.pow(b2, c))
         for group in self.param_groups:
@@ -125,6 +137,21 @@ class DetectorOptimizer(torch.optim.Optimizer):
                 torch._foreach_add_(traces, grads)        # t = g + mu t
                 upd = torch._foreach_mul(traces, mom)
                 torch._foreach_add_(upd, grads)           # g + mu t
+            elif self.kind == "RMSProp":
+                mom = float(mom_fn(t))
+                nus = [self._state(p, "nu") for p in params]
+                torch._foreach_mul_(nus, self.RMS_DECAY)
+                torch._foreach_add_(nus, torch._foreach_mul(
+                    torch._foreach_mul(grads, grads), 1.0 - self.RMS_DECAY))
+                upd = [g * torch.rsqrt(nu + self.eps)
+                       for g, nu in zip(grads, nus)]
+                torch._foreach_mul_(upd, -lr)             # lr before trace
+                traces = [self._state(p, "trace") for p in params]
+                torch._foreach_mul_(traces, mom)
+                torch._foreach_add_(traces, upd)          # t = u + mu t
+                if not group["frozen"]:
+                    torch._foreach_add_(params, traces)
+                continue
             else:
                 mus = [self._state(p, "mu") for p in params]
                 nus = [self._state(p, "nu") for p in params]

@@ -191,7 +191,15 @@ class DetectorTrainer:
 
     ``model`` is a ``DetectionModel`` holding the initial weights; it is
     moved to ``device`` and trained in place.  ``mesh`` (data or tensor
-    parallelism) is not ported."""
+    parallelism) is not ported.
+
+    Subclass hooks (the segmentation trainer's): ``_build_step`` supplies
+    the step, ``_validate`` the per-epoch metrics and fitness,
+    ``_batch_arity`` how many arrays a dataset batch carries,
+    ``_plot_train_batch`` draws a batch and ``_plot_final_val`` the final
+    validation plots."""
+
+    _batch_arity = 3  # (images, targets, tmask)
 
     def __init__(self, model, spec, train_ds: DetectorDataset,
                  val_ds: Optional[DetectorDataset] = None,
@@ -237,8 +245,7 @@ class DetectorTrainer:
 
         self.tx, self._lr_fn = make_warmup_optimizer(
             self.cfg, self.steps_per_epoch)
-        self.step_fn = make_detector_train_step(
-            anchors_in_grid_units(spec), self.hyp)
+        self.step_fn = self._build_step()
         self.state = init_detector_train_state(self.model, self.tx,
                                                self.cfg.ema_decay)
         # the EMA weights are validated on a copy (live BN statistics)
@@ -268,6 +275,10 @@ class DetectorTrainer:
     start_epoch = 0
 
     # ------------------------------------------------------------------ #
+    def _build_step(self):
+        return make_detector_train_step(anchors_in_grid_units(self.spec),
+                                        self.hyp)
+
     def _validate(self):
         metrics = {"precision": 0.0, "recall": 0.0, "map50": 0.0,
                    "map": 0.0}
@@ -300,7 +311,7 @@ class DetectorTrainer:
                           antialias=True)
         return y.permute(0, 2, 3, 1).contiguous()
 
-    def _plot_train_batch(self, bi: int, images, targets, tmask):
+    def _plot_train_batch(self, bi: int, images, targets, tmask, *extra):
         """train_batch{0,1,2}.jpg mosaics with drawn boxes."""
         from adaptiveisp_tpu_torch.obs.plots import plot_images
 
@@ -324,15 +335,14 @@ class DetectorTrainer:
         """One epoch; the losses stay on the device until its end, so the
         host builds the next batch while the device runs the step."""
         losses = []
-        for bi, (images, targets, tmask) in enumerate(
-                self.train_ds.epoch_batches()):
+        for bi, (images, *rest) in enumerate(self.train_ds.epoch_batches()):
             if self.plots and epoch == 0 and bi < 3:
                 os.makedirs(self.save_dir, exist_ok=True)
-                self._plot_train_batch(bi, images, targets, tmask)
-            x, t, m = (torch.from_numpy(a).to(self.device)
-                       for a in (images, targets, tmask))
+                self._plot_train_batch(bi, images, *rest)
+            x, *rest = (torch.from_numpy(a).to(self.device)
+                        for a in (images, *rest))
             self.state, out = self.step_fn(self.state, self._maybe_rescale(x),
-                                           t, m)
+                                           *rest)
             losses.append(out["loss"])
         if not losses:
             return float("nan")
@@ -460,11 +470,15 @@ class DetectorTrainer:
 
             plot_results(os.path.join(self.save_dir, "results.csv"))
             if self.val_ds is not None:
-                validate_detector(
-                    self.ema_model(), self.val_ds, self.spec,
-                    max_batches=self.val_batches, plots=True,
-                    save_dir=self.save_dir, names=self.names)
+                self._plot_final_val()
         return self.history
+
+    def _plot_final_val(self):
+        """Final curve and confusion plots from the EMA weights."""
+        validate_detector(
+            self.ema_model(), self.val_ds, self.spec,
+            max_batches=self.val_batches, plots=True,
+            save_dir=self.save_dir, names=self.names)
 
     @staticmethod
     def _flat_metrics(log: EpochLog) -> Dict[str, float]:

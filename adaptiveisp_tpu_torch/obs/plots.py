@@ -1,11 +1,12 @@
 """Training and evaluation plots (port of ``adaptiveisp_tpu/obs/plots.py``):
-train-batch mosaics with drawn boxes (``plot_images``, PIL only), the label
+train-batch mosaics with drawn boxes (``plot_images``, PIL only) and with
+instance masks blended in (``plot_images_and_masks``), the label
 distribution (``plot_labels``), results.csv curves (``plot_results``), the
 hyperparameter-evolution scatter (``plot_evolve``), metric-vs-confidence
 curves (``plot_mc_curve``), the speed-vs-mAP study (``plot_val_study``) and
 per-stage feature maps (``capture_features`` with forward hooks, then
 ``feature_visualization``).  Images are NHWC float in [0, 1].  matplotlib is
-imported when a curve plot is drawn; the mask plots are not ported.
+imported when a curve plot is drawn.
 """
 
 from __future__ import annotations
@@ -112,6 +113,63 @@ def plot_images(images, targets, paths: Optional[Sequence[str]] = None,
             draw.text((box[0] + 2, max(box[1] - 10, y)), label, fill=color)
     img.save(fname)
     return fname
+
+
+def overlay_masks(images, masks, classes=None, tmask=None,
+                  alpha: float = 0.4) -> np.ndarray:
+    """Alpha-blend per-instance masks into a batch of images.
+
+    images [N,H,W,3] float [0,1] or uint8; masks [N,T,mh,mw] padded
+    per-instance binary masks (nearest-upsampled to H,W); classes [N,T] int
+    for per-class colors (instance index when absent); tmask [N,T] bool
+    validity.  Returns a blended uint8 copy (reference
+    utils/segment/plots.py plot_images_and_masks).
+    """
+    im = _to_uint8(images).copy()
+    masks = np.asarray(masks)
+    n, h, w = im.shape[:3]
+    if masks.size == 0:
+        return im
+    mh, mw = masks.shape[2:]
+    yi = (np.arange(h) * mh) // h
+    xi = (np.arange(w) * mw) // w
+    for i in range(n):
+        for t in range(masks.shape[1]):
+            if tmask is not None and not tmask[i][t]:
+                continue
+            m = masks[i, t][np.ix_(yi, xi)] > 0.5
+            if not m.any():
+                continue
+            cls = int(classes[i][t]) if classes is not None else t
+            color = np.asarray(class_color(cls), np.float32)
+            im[i][m] = (im[i][m] * (1 - alpha)
+                        + color * alpha).astype(np.uint8)
+    return im
+
+
+def plot_images_and_masks(images, targets, masks, tmask=None,
+                          paths=None, fname: str = "images.jpg",
+                          names=None, max_subplots: int = 16) -> str:
+    """plot_images with instance masks blended in (the segmentation
+    trainer's train-batch mosaic).
+
+    targets: flat [n, >=6] rows (img_idx, cls, xywhn, ...); masks
+    [N,T,mh,mw] aligned with each image's target order; tmask [N,T] marks
+    valid instances.
+    """
+    targets = np.asarray(targets, np.float32)
+    if targets.size == 0:
+        targets = targets.reshape(0, 6)
+    masks = np.asarray(masks)
+    t_cap = masks.shape[1] if masks.size else 0
+    classes = []
+    for i in range(np.asarray(images).shape[0]):
+        cls_i = targets[targets[:, 0] == i][:, 1].astype(int)
+        classes.append(list(cls_i[:t_cap])
+                       + [0] * max(0, t_cap - len(cls_i)))
+    blended = overlay_masks(images, masks, classes=classes, tmask=tmask)
+    return plot_images(blended, targets, paths=paths, fname=fname,
+                       names=names, max_subplots=max_subplots)
 
 
 def plot_labels(labels: np.ndarray, names=(), save_dir: str = ".") -> str:

@@ -132,6 +132,31 @@ Phases, each printing one JSON line:
      run on the first 2;
  20. raw_unprocess: ``raw.unprocess.unprocess_batch`` at [8,512,512,3] on
      the card, replayed with its metadata on the card and on the CPU;
+ 21. segment_train: ``detect.segment.SegmentTrainer`` at full width:
+     YOLOv3's widths with the Segment head (80 classes, nm 32, npr 256),
+     640 px, batch 16, masks at 160 x 160, flips and copy-paste, one epoch
+     over 48 seeded synthetic polygon PNGs (2-5 instances each) under
+     ``build/seg_smoke`` with box + mask validation on 16 more; step ms
+     (CUDA events), the host's data ms a batch, busy share, peak memory,
+     box and mask mAP;
+ 22. segment_vs_cpu: the same spec at batch 2 @ 128 px, three train steps
+     on the card and on the CPU from one state (loss, parameters, EMA);
+ 23. segment_cli: the predict CLI (``--spec yolov3 --imgsz 640
+     --save_txt``, ``spread_detector_state`` weights) on 8 PNGs, ms per
+     frame, card against ``--device cpu`` on 2 (boxes as multisets, mask
+     IoU of matched instances); then ``train`` for one epoch and
+     ``--validate-only`` on its checkpoint;
+ 24. classify_train: ``classify.ClassifierTrainer`` with the Darknet-53
+     backbone (``ClassificationModel(spec=YOLOV3_SPEC)``), 10 classes,
+     224 px, batch 64, one epoch over 640 seeded images under
+     ``build/cls_smoke`` (top-1 / top-5 on 160): step ms, images/s, the
+     host's data ms, busy share; then the classify CLI with its default
+     backbone and ``--validate-only``;
+ 25. classify_vs_cpu: three steps per optimizer (SGD, Adam, AdamW,
+     RMSProp) at batch 4 @ 64 px on the card and on the CPU, then
+     ``predict`` and ``apply_classifier`` over the hub phase's YOLOv3
+     detections; the segmentation and classification phases launch none
+     of K1-K4 (their counts are printed);
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
@@ -2784,6 +2809,674 @@ def phase_raw_unprocess():
         raise AssertionError(f"raw_unprocess: {rec}")
 
 
+# segmentation and classification at full width: YOLOv3's widths with the
+# Segment head (80 classes, nm 32, npr 256) at 640 px and batch 16, masks at
+# a quarter of the input (the Proto tower's 160 x 160); the Darknet-53
+# classifier at 224 px and batch 64.  None of these paths launches K1-K4.
+SEG_BASE, SEG_IMAGES, SEG_VAL, SEG_SIZE, SEG_BATCH = "yolov3", 64, 16, 640, 16
+SEG_NM, SEG_NPR = 32, 256
+SEG_CPU_SIZE, SEG_CPU_BATCH, SEG_CPU_STEPS = 128, 2, 3
+SEG_CLI_IMAGES, SEG_CLI_CPU_IMAGES = 8, 2
+SEG_MASK_IOU = 0.98
+CLS_BACKBONE, CLS_CLASSES, CLS_PER_CLASS, CLS_VAL_PER_CLASS = (
+    "yolov3", 10, 64, 16)
+CLS_SIZE, CLS_BATCH = 224, 64
+CLS_CPU_SIZE, CLS_CPU_BATCH, CLS_CPU_STEPS = 64, 4, 3
+CLS_OPTIMIZERS = ("SGD", "Adam", "AdamW", "RMSProp")
+CARD = "cuda"   # the device of the card's side of each comparison
+
+
+def _seg_spec():
+    """The segmentation spec of SEG_BASE and its mask ratio (the Proto
+    tower's output is the first level upsampled 2x: ratio 4 for YOLOv3)."""
+    from adaptiveisp_tpu_torch.detect.model import model_strides
+    from adaptiveisp_tpu_torch.detect.segment import seg_spec_from
+    from adaptiveisp_tpu_torch.detect.spec import resolve_spec
+
+    spec = seg_spec_from(resolve_spec(SEG_BASE), nm=SEG_NM, npr=SEG_NPR)
+    return spec, model_strides(spec)[0] // 2
+
+
+def _seg_data():
+    """SEG_IMAGES seeded synthetic polygon PNGs at SEG_SIZE, the last
+    SEG_VAL of them for validation, 2-5 filled polygons (3-8 vertices) of
+    the 80 classes each, with polygon labels, under build/seg_smoke."""
+    import shutil
+
+    from PIL import Image, ImageDraw
+
+    root = Path(__file__).resolve().parent / "build" / "seg_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(81)
+    s = SEG_SIZE
+    for i in range(SEG_IMAGES):
+        split = "val" if i >= SEG_IMAGES - SEG_VAL else "train"
+        (root / split / "images").mkdir(parents=True, exist_ok=True)
+        (root / split / "labels").mkdir(exist_ok=True)
+        img = Image.fromarray((rng.rand(s, s, 3) * 0.25 * 255 + rng.rand(3)
+                               * 0.4 * 255).astype(np.uint8))
+        draw, rows = ImageDraw.Draw(img), []
+        for _ in range(rng.randint(2, 6)):
+            k = rng.randint(3, 9)
+            cx, cy = rng.uniform(0.2, 0.8, 2)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+            rad = rng.uniform(0.05, 0.2, k)
+            pts = np.clip(np.stack([cx + rad * np.cos(ang),
+                                    cy + rad * np.sin(ang)], 1), 0.0, 1.0)
+            draw.polygon([(float(x) * s, float(y) * s) for x, y in pts],
+                         fill=tuple(int(v) for v in rng.randint(0, 256, 3)))
+            rows.append(f"{rng.randint(0, 80)} "
+                        + " ".join(f"{v:.6f}" for v in pts.ravel()) + "\n")
+        img.save(root / split / "images" / f"{i}.png")
+        (root / split / "labels" / f"{i}.txt").write_text("".join(rows))
+    return root
+
+
+def _launch_counts():
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    return dict(build.LAUNCHES)
+
+
+def phase_segment_train(smi):
+    """Segmentation training at full width on the card:
+    ``detect.segment.SegmentTrainer`` on YOLOv3's widths with the Segment
+    head (80 classes, nm 32, npr 256), 640 px, batch 16, masks at 160 x
+    160 (mask ratio 4), f32, flips and copy-paste, one epoch over the
+    training images with box + mask validation on the last 16; each step
+    timed by CUDA events, each batch's host data time by the host clock,
+    the peak of device memory (the mask loss forms [16, 5, 3, 32, 160,
+    160] per level)."""
+    import contextlib
+
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.data.segment_dataset import SegmentDataset
+    from adaptiveisp_tpu_torch.detect.segment import SegmentTrainer
+    from adaptiveisp_tpu_torch.detect.train_detector import DetTrainConfig
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    root = _seg_data()
+    spec, ratio = _seg_spec()
+    kw = dict(img_size=SEG_SIZE, batch_size=SEG_BATCH, mask_ratio=ratio)
+    tds = SegmentDataset(str(root / "train" / "images"), augment=True,
+                         copy_paste=0.5, seed=0, **kw)
+    vds = SegmentDataset(str(root / "val" / "images"), augment=False, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = api.load_detector(spec=spec, seed=0, device=CARD).model
+    tr = SegmentTrainer(model, spec, tds, vds,
+                        cfg=DetTrainConfig(epochs=1, batch_size=SEG_BATCH),
+                        save_dir=str(root / "run"), nm=SEG_NM, device=CARD)
+    events, data_ms, epoch_s, val_s = [], [], [], []
+    step_fn = tr.step_fn
+
+    def timed_step(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step_fn(*a)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def timed_host(fn, sink):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sink.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    tr.step_fn = timed_step
+    tr.train_ds.collate = timed_host(tr.train_ds.collate, data_ms)
+    tr.train_epoch = timed_host(tr.train_epoch, epoch_s)
+    tr._validate = timed_host(tr._validate, val_s)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        hist = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    m = hist[0].metrics
+    rec = {"phase": "segment_train", "nvidia_smi": smi,
+           "spec": f"{SEG_BASE}-seg",
+           "imgsz": SEG_SIZE, "batch": SEG_BATCH, "nm": SEG_NM,
+           "npr": SEG_NPR, "proto": SEG_SIZE // ratio,
+           "train_images": len(tds), "val_images": len(vds),
+           "params": sum(p.numel() for p in tr.model.parameters()),
+           "loss": hist[0].loss, "step_ms": step_ms,
+           "step_ms_median_after_first": float(np.median(step_ms[1:])),
+           "images_per_s": SEG_BATCH * 1e3 / float(np.median(step_ms[1:])),
+           "host_data_ms_per_batch": [d * 1e3 for d in data_ms],
+           "host_data_ms_median": float(np.median(data_ms)) * 1e3,
+           "epoch_train_s": epoch_s[0],
+           "busy_share": sum(step_ms) / 1e3 / epoch_s[0],
+           "validation_s": val_s[0], "fit_s": fit_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "box_map50": m["box"]["map50"], "box_map": m["box"]["map"],
+           "mask_map50": m["mask"]["map50"], "mask_map": m["mask"]["map"],
+           "launches": launches,
+           "files": sorted(p.name for p in (root / "run").iterdir())}
+    emit(rec)
+    if (not np.isfinite(hist[0].loss) or len(step_ms) != len(tds) // SEG_BATCH
+            or any(launches.values())
+            or not all(np.isfinite(rec[k]) for k in (
+                "box_map50", "box_map", "mask_map50", "mask_map"))
+            or "last.pt" not in rec["files"]):
+        raise AssertionError(f"segment_train: {rec}")
+    return rec
+
+
+def _rel_tensor_errs(got, want, start, kernel_tol, stats_tol):
+    """Per state_dict: the largest |card - CPU| over each tensor's largest
+    value, kernels (conv and BatchNorm weights) and biases / statistics
+    apart, with how far the CPU's moved from ``start`` on that scale, and
+    the tensors beyond ``kernel_tol`` / ``stats_tol``."""
+    worst, moved, fails = {}, {}, []
+    for k, w in want.items():
+        if "num_batches" in k:
+            continue
+        scale = float(w.abs().max()) or 1.0
+        err = float((got[k] - w).abs().max()) / scale
+        stat = k.endswith(("bias", "running_mean", "running_var"))
+        kind = "bias_stats" if stat else "kernels"
+        worst[kind] = max(worst.get(kind, 0.0), err)
+        if start is not None:
+            moved[kind] = max(moved.get(kind, 0.0),
+                              float((w - start[k]).abs().max()) / scale)
+        if err > (stats_tol if stat else kernel_tol):
+            fails.append((k, err))
+    return worst, moved, fails
+
+
+def phase_segment_vs_cpu():
+    """The full-width segmentation spec at batch 2 @ 128 px (masks 32 x
+    32), augmentation off, three ``make_segment_train_step`` steps with
+    the warmup optimizer on the card and on the CPU from one state (TF32
+    off, cuDNN deterministic).  Tolerances as ``detector_vs_cpu`` states
+    them: loss 1e-4 relative; conv kernels and BatchNorm weights 1e-5 of
+    their largest value; biases and BatchNorm statistics 1e-3; the EMA as
+    its parameters."""
+    import copy
+
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.data.segment_dataset import SegmentDataset
+    from adaptiveisp_tpu_torch.detect.loss import LossHyp
+    from adaptiveisp_tpu_torch.detect.model import anchors_in_grid_units
+    from adaptiveisp_tpu_torch.detect.segment import make_segment_train_step
+    from adaptiveisp_tpu_torch.detect.train_detector import (
+        DetTrainConfig,
+        init_detector_train_state,
+    )
+    from adaptiveisp_tpu_torch.detect.train_loop import make_warmup_optimizer
+
+    root = Path(__file__).resolve().parent / "build" / "seg_smoke"
+    spec, ratio = _seg_spec()
+    ds = SegmentDataset(str(root / "train" / "images"), img_size=SEG_CPU_SIZE,
+                        batch_size=SEG_CPU_BATCH, mask_ratio=ratio)
+    batches = [b for _, b in zip(range(SEG_CPU_STEPS),
+                                 ds.epoch_batches(shuffle=False))]
+    base = api.load_detector(spec=spec, seed=0, device="cpu").model
+    tx, _ = make_warmup_optimizer(DetTrainConfig(), 100)
+    step = make_segment_train_step(anchors_in_grid_units(spec),
+                                   LossHyp(obj=(SEG_CPU_SIZE / 640) ** 2))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    try:
+        for dev in (CARD, "cpu"):
+            t0 = time.perf_counter()
+            state = init_detector_train_state(copy.deepcopy(base).to(dev), tx)
+            losses, segs = [], []
+            for b in batches:
+                state, o = step(state, *(torch.from_numpy(a).to(dev)
+                                         for a in b))
+                losses.append(float(o["loss"]))
+                segs.append(float(o["components"]["seg"]))
+            out[dev] = {"losses": losses, "seg": segs,
+                        "secs": time.perf_counter() - t0,
+                        "model": {k: v.cpu() for k, v in
+                                  state.model.state_dict().items()},
+                        "ema": {k: v.cpu() for k, v in
+                                state.ema.params.items()}}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    start = base.state_dict()
+    worst, moved, fails = _rel_tensor_errs(
+        out[CARD]["model"], out["cpu"]["model"], start, 1e-5, 1e-3)
+    ema_worst, _, ema_fails = _rel_tensor_errs(
+        out[CARD]["ema"], out["cpu"]["ema"], None, 1e-5, 1e-3)
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(out[CARD]["losses"], out["cpu"]["losses"]))
+    rec = {"phase": "segment_vs_cpu", "imgsz": SEG_CPU_SIZE,
+           "batch": SEG_CPU_BATCH, "steps": SEG_CPU_STEPS,
+           "losses_cuda": out[CARD]["losses"],
+           "losses_cpu": out["cpu"]["losses"],
+           "seg_loss_cuda": out[CARD]["seg"], "seg_loss_cpu": out["cpu"]["seg"],
+           "loss_rel_err": loss_err, "max_rel_err": worst,
+           "ema_max_rel_err": ema_worst, "moved_rel": moved,
+           "cuda_s": out[CARD]["secs"], "cpu_s": out["cpu"]["secs"],
+           "fails": (fails + ema_fails)[:10]}
+    emit(rec)
+    if fails or ema_fails or loss_err > 1e-4 or not all(
+            s > 0 for s in out["cpu"]["seg"]):
+        raise AssertionError(f"segment_vs_cpu: {rec}")
+    return rec
+
+
+def _seg_rows_err(got, want, max_det: int):
+    """``_rows_err`` of a frame's card and CPU instances (the CLI's
+    result dicts), with the mask IoU of each matched pair (the smallest)."""
+    g, w = got["det"], want["det"]
+    err = _rows_err(g, w, max_det=max_det)
+    if err is None or not len(g):
+        return err
+    cut = (min(g[:, 4].min(), w[:, 4].min()) + HUB_ATOL["conf"]
+           if len(g) >= max_det else -np.inf)
+    used, ious = np.zeros(len(w), bool), []
+    for i, r in enumerate(g):
+        if r[4] <= cut:
+            continue
+        cand = np.flatnonzero(~used & (w[:, 5] == r[5]) & (np.abs(
+            w[:, 4] - r[4]) <= HUB_ATOL["conf"]))
+        if not len(cand):
+            continue
+        j = cand[np.abs(w[cand, :4] - r[:4]).max(1).argmin()]
+        used[j] = True
+        a, b = got["masks"][i] > 0.5, want["masks"][j] > 0.5
+        union = (a | b).sum()   # two empty masks agree
+        ious.append(float((a & b).sum() / union) if union else 1.0)
+    err["mask_iou_min"] = min(ious) if ious else None
+    err["mask_pairs"] = len(ious)
+    return err
+
+
+def phase_segment_cli():
+    """The predict CLI (``detect.segment.main``) at full width on the card:
+    ``--spec yolov3 --imgsz 640 --save_txt`` with ``spread_detector_state``
+    weights of the segmentation spec (a fresh head's scores cluster), on 8
+    of the training PNGs, run twice (the second run timed: ms per frame
+    without the set-up, the model's build, weights and move, timed
+    apart); then ``--device cpu`` on the first 2:
+    boxes as multisets (``_rows_err``) and each matched instance's mask
+    IoU at least SEG_MASK_IOU (bilinear masks thresholded at 0.5: pixels
+    within float32 noise of the threshold may flip).  Then ``train`` for
+    one epoch at 640 px and batch 16 (the spec's mask ratio, 4), and its
+    last.pt through ``train --validate-only``."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from adaptiveisp_tpu_torch.detect import segment as seg
+
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    root = Path(__file__).resolve().parent / "build" / "seg_smoke"
+    spec, _ = _seg_spec()
+    weights = root / "spread.pt"
+    torch.save({"model": spread_detector_state(spec, 17)}, weights)
+    src, src_cpu = root / "cli_images", root / "cli_images_cpu"
+    for d in (src, src_cpu):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir()
+    for i in range(SEG_CLI_IMAGES):
+        shutil.copy(root / "train" / "images" / f"{i}.png", src / f"{i}.png")
+        if i < SEG_CLI_CPU_IMAGES:
+            shutil.copy(src / f"{i}.png", src_cpu / f"{i}.png")
+    base = ["--spec", SEG_BASE, "--nm", str(SEG_NM), "--npr", str(SEG_NPR),
+            "--imgsz", str(SEG_SIZE), "--weights", str(weights),
+            "--save_txt"]
+    secs, setup_s = [], []
+    new_model = seg._new_model
+
+    def timed_model(*a, **k):   # the set-up: build, weights, to the card
+        t = time.perf_counter()
+        out = new_model(*a, **k)
+        setup_s.append(time.perf_counter() - t)
+        return out
+
+    seg._new_model = timed_model
+    build.reset_launches()
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                res = seg.main(["--source", str(src), "--device", CARD,
+                                "--save_dir", str(root / "cli_cuda")] + base)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        seg._new_model = new_model
+    launches = _launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res_c = seg.main(["--source", str(src_cpu), "--device", "cpu",
+                          "--save_dir", str(root / "cli_cpu")] + base)
+    cpu_s = time.perf_counter() - t0
+    by_name = {r["name"]: r for r in res}
+    errs = {r["name"]: _seg_rows_err(by_name[r["name"]], r, 100)
+            for r in res_c}
+    txts = sorted(p.name for p in (root / "cli_cuda").glob("*.txt"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        hist = seg.train_main([
+            "--data", str(root / "train" / "images"), "--val-data",
+            str(root / "val" / "images"), "--spec", SEG_BASE,
+            "--imgsz", str(SEG_SIZE), "--batch-size", str(SEG_BATCH),
+            "--epochs", "1", "--save-dir", str(root / "cli_train"),
+            "--exist-ok", "--device", CARD])
+        val = seg.train_main([
+            "--data", str(root / "val" / "images"), "--spec", SEG_BASE,
+            "--imgsz", str(SEG_SIZE), "--batch-size", str(SEG_BATCH),
+            "--validate-only", "--weights",
+            str(root / "cli_train" / "last.pt"), "--device", CARD])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rec = {"phase": "segment_cli", "frames": SEG_CLI_IMAGES,
+           "seconds": secs, "setup_seconds": setup_s,
+           "ms_per_frame": (secs[-1] - setup_s[-1]) * 1e3 / SEG_CLI_IMAGES,
+           "instances": {r["name"]: len(r["det"]) for r in res},
+           "txt_files": len(txts), "cpu_frames": SEG_CLI_CPU_IMAGES,
+           "cpu_seconds": cpu_s, "vs_cpu": errs, "atol": HUB_ATOL,
+           "mask_iou_floor": SEG_MASK_IOU, "launches": launches,
+           "train_s": train_s, "train_loss": hist[0].loss,
+           "validate_only": {p: val[p]["map50"] for p in ("box", "mask")}}
+    emit(rec)
+    ok = (len(res) == SEG_CLI_IMAGES and len(res_c) == SEG_CLI_CPU_IMAGES
+          and sum(len(r["det"]) for r in res_c) > 0
+          and all(_within(e) and (e["mask_iou_min"] is None
+                                  or e["mask_iou_min"] >= SEG_MASK_IOU)
+                  for e in errs.values())
+          and sum(e["mask_pairs"] for e in errs.values() if e) > 0
+          and len(txts) == sum(1 for r in res if len(r["det"]))
+          and not any(launches.values()) and np.isfinite(hist[0].loss)
+          and all(np.isfinite(v) for v in rec["validate_only"].values()))
+    if not ok:
+        raise AssertionError(f"segment_cli: {rec}")
+    return rec
+
+
+def _cls_data():
+    """CLS_CLASSES seeded class folders under build/cls_smoke/{train,val}:
+    each image noise over a class colour and a class stripe pattern, of
+    varied sizes around 256 px (resized to the input on loading)."""
+    import shutil
+
+    from PIL import Image
+
+    root = Path(__file__).resolve().parent / "build" / "cls_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(82)
+    colours = rng.rand(CLS_CLASSES, 3)
+    for split, n in (("train", CLS_PER_CLASS), ("val", CLS_VAL_PER_CLASS)):
+        for c in range(CLS_CLASSES):
+            d = root / split / f"class{c}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                h, w = rng.randint(200, 300, 2)
+                im = rng.rand(h, w, 3) * 0.5 + colours[c] * 0.5
+                im[::(c % 5) + 2] *= 0.6
+                Image.fromarray((im * 255).astype(np.uint8)).save(
+                    d / f"{i}.png")
+    return root
+
+
+def phase_classify_train(smi):
+    """Classification at full width on the card: ``ClassifierTrainer``
+    with ``ClassificationModel(spec=YOLOV3_SPEC)`` (the Darknet-53
+    backbone and the 1280-wide head), 10 classes, 224 px, batch 64, SGD,
+    one epoch over 640 seeded images with top-1 / top-5 on 160; each step
+    timed by CUDA events, each batch's host load by the host clock; then
+    the classify CLI (``classify.main``, its default YOLOv3-tiny backbone)
+    for one epoch on the same folders and ``--validate-only`` on its
+    best.pt."""
+    import contextlib
+
+    import torch
+
+    from adaptiveisp_tpu_torch import classify as cls
+    from adaptiveisp_tpu_torch.detect.spec import resolve_spec
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    root = _cls_data()
+    tds = cls.FolderDataset(str(root / "train"), img_size=CLS_SIZE,
+                            augment=True, seed=0)
+    vds = cls.FolderDataset(str(root / "val"), img_size=CLS_SIZE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = cls.create_classifier(spec=resolve_spec(CLS_BACKBONE),
+                                  nc=CLS_CLASSES, device=CARD)
+    tr = cls.ClassifierTrainer(
+        model, tds, vds, cfg=cls.ClsTrainConfig(epochs=1,
+                                                batch_size=CLS_BATCH),
+        save_dir=str(root / "run"), device=CARD)
+    events, data_ms = [], []
+    step_fn, batches = tr.step_fn, tds.epoch_batches
+
+    def timed_step(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step_fn(*a)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def timed_batches(*a, **k):
+        it = batches(*a, **k)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                return
+            data_ms.append((time.perf_counter() - t0) * 1e3)
+            yield b
+
+    tr.step_fn, tds.epoch_batches = timed_step, timed_batches
+    build.reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    med = float(np.median(step_ms[1:]))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        cli_hist = cls.main(["--data", str(root), "--imgsz", str(CLS_SIZE),
+                             "--batch-size", str(CLS_BATCH), "--epochs", "1",
+                             "--save-dir", str(root / "cli"), "--exist-ok",
+                             "--device", CARD])
+        cli_val = cls.main(["--data", str(root), "--imgsz", str(CLS_SIZE),
+                            "--batch-size", str(CLS_BATCH), "--validate-only",
+                            "--weights", str(root / "cli" / "best.pt"),
+                            "--device", CARD])
+    torch.cuda.synchronize()
+    rec = {"phase": "classify_train", "nvidia_smi": smi,
+           "backbone": CLS_BACKBONE, "classes": CLS_CLASSES,
+           "imgsz": CLS_SIZE, "batch": CLS_BATCH, "train_images": len(tds),
+           "val_images": len(vds),
+           "params": sum(p.numel() for p in model.parameters()),
+           "loss": hist[0]["loss"], "top1": hist[0]["top1"],
+           "top5": hist[0]["top5"], "step_ms": step_ms,
+           "step_ms_median_after_first": med,
+           "images_per_s": CLS_BATCH * 1e3 / med,
+           "host_data_ms_per_batch": data_ms,
+           "host_data_ms_median": float(np.median(data_ms)),
+           "busy_share": sum(step_ms) / 1e3 / hist[0]["seconds"],
+           "epoch_s": hist[0]["seconds"], "fit_s": fit_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "cli_s": time.perf_counter() - t0,
+           "cli_loss": cli_hist[0]["loss"], "cli_top1": cli_hist[0]["top1"],
+           "cli_validate_only": cli_val}
+    emit(rec)
+    if (not np.isfinite(hist[0]["loss"]) or len(step_ms) != len(tds)
+            // CLS_BATCH or any(launches.values())
+            or not 0 <= hist[0]["top1"] <= hist[0]["top5"] <= 1
+            or not np.isfinite(cli_hist[0]["loss"])
+            or not 0 <= cli_val["top1"] <= cli_val["top5"] <= 1):
+        raise AssertionError(f"classify_train: {rec}")
+    return rec
+
+
+def _update_errs(got, want, lr_sum):
+    """Card against CPU after steps of a normalising optimizer (Adam,
+    AdamW, RMSProp): each element moves by about lr a step whatever its
+    gradient's size, so an element whose gradient is within float32 noise
+    of zero may move differently.  Over every parameter element: the
+    largest difference over the summed lr, the share of elements more than
+    1 % of the summed lr apart, and that share in the worst tensor."""
+    worst, beyond, total, tensor_share = 0.0, 0, 0, 0.0
+    for k, w in want.items():
+        if "num_batches" in k or "running" in k:
+            continue
+        d = (got[k] - w).abs() / lr_sum
+        worst = max(worst, float(d.max()))
+        n = int((d > 0.01).sum())
+        beyond, total = beyond + n, total + d.numel()
+        tensor_share = max(tensor_share, n / d.numel())
+    return worst, beyond / total, tensor_share
+
+
+def phase_classify_vs_cpu(hub_weights):
+    """The Darknet-53 classifier at batch 4 @ 64 px, three train steps per
+    optimizer (SGD, Adam, AdamW, RMSProp) on the card and on the CPU from
+    one state (TF32 off, cuDNN deterministic).  Tolerances: the losses 1e-4
+    relative with SGD, 1e-3 with the normalising optimizers; SGD's
+    parameters as ``detector_vs_cpu``'s (kernels 1e-5 of their largest
+    value, biases and statistics 1e-3); the normalising optimizers'
+    parameters within 2 summed lr of each other in every element and
+    within 1 % of it in all but 1 % of all elements (``_update_errs``),
+    their BatchNorm statistics 1e-2: a few elements of small gradient move
+    differently and the statistics follow them (the first call measured
+    0.68 summed lr at most, 1.6 % of a 64-element tensor beyond 1 % with
+    Adam and 15.6 % with RMSProp, statistics 1.1e-3).  Then ``predict``
+    (top 5, probabilities within 1e-4) and ``apply_classifier`` over the
+    hub phase's YOLOv3 detections of 2 frames (the kept rows equal, each
+    crop's class equal and its logits within 1e-3), the classifier on the
+    card against the CPU."""
+    import copy
+
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch import classify as cls
+    from adaptiveisp_tpu_torch.detect.spec import resolve_spec
+
+    rng = np.random.RandomState(83)
+    base = cls.create_classifier(spec=resolve_spec(CLS_BACKBONE),
+                                 nc=CLS_CLASSES, device="cpu")
+    xs = [rng.rand(CLS_CPU_BATCH, CLS_CPU_SIZE, CLS_CPU_SIZE, 3).astype(
+        np.float32) for _ in range(CLS_CPU_STEPS)]
+    ys = [rng.randint(0, CLS_CLASSES, CLS_CPU_BATCH)
+          for _ in range(CLS_CPU_STEPS)]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    per_opt, ok = {}, True
+    try:
+        for opt in CLS_OPTIMIZERS:
+            cfg = cls.ClsTrainConfig(batch_size=CLS_CPU_BATCH, optimizer=opt)
+            out = {}
+            for dev in (CARD, "cpu"):
+                model = copy.deepcopy(base).to(dev)
+                st = cls.ClsTrainState(
+                    model, cls.make_classifier_optimizer(cfg, 10)(model),
+                    cls.ModelEMA(model, cfg.ema_decay))
+                step = cls.make_classifier_train_step(cfg)
+                losses = []
+                for x, y in zip(xs, ys):
+                    st, o = step(st, torch.from_numpy(x).to(dev),
+                                 torch.from_numpy(y).long().to(dev))
+                    losses.append(float(o["loss"]))
+                out[dev] = (losses, {k: v.detach().cpu() for k, v in
+                                     model.state_dict().items()})
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(out[CARD][0], out["cpu"][0]))
+            start = base.state_dict()
+            if opt == "SGD":
+                worst, moved, fails = _rel_tensor_errs(
+                    out[CARD][1], out["cpu"][1], start, 1e-5, 1e-3)
+                r = {"max_rel_err": worst, "moved_rel": moved,
+                     "fails": fails[:5]}
+                good = not fails
+            else:
+                lr_sum = sum(cls.cosine_decay_schedule(
+                    cfg.lr0, 10, cfg.lrf)(t) for t in range(CLS_CPU_STEPS))
+                worst, share, tensor_share = _update_errs(
+                    out[CARD][1], out["cpu"][1], lr_sum)
+                stats_worst, _, sfails = _rel_tensor_errs(
+                    {k: v for k, v in out[CARD][1].items() if "running" in k},
+                    {k: v for k, v in out["cpu"][1].items() if "running" in k},
+                    None, 1e-2, 1e-2)
+                r = {"max_err_over_lr_sum": worst,
+                     "share_beyond_1pct_lr_sum": share,
+                     "worst_tensor_share": tensor_share,
+                     "stats_max_rel_err": stats_worst,
+                     "stats_fails": sfails[:5]}
+                good = worst <= 2.0 and share <= 1e-2 and not sfails
+            r.update(losses_cuda=out[CARD][0], losses_cpu=out["cpu"][0],
+                     loss_rel_err=loss_err)
+            per_opt[opt] = r
+            ok = ok and good and loss_err <= (1e-4 if opt == "SGD" else 1e-3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # predict and the second-stage gate on the hub detector's detections
+    classes = [f"class{c}" for c in range(CLS_CLASSES)]
+    card_m, cpu_m = copy.deepcopy(base).to(CARD).eval(), base.eval()
+    frames = [rng.rand(480, 640, 3).astype(np.float32),
+              rng.rand(360, 500, 3).astype(np.float32)]
+    det = api.load_detector(weights=str(hub_weights), device=CARD)
+    dets = [d for d in det(frames, size=HUB_SIZE).xyxy]
+    crops = np.stack([f[:CLS_CPU_SIZE, :CLS_CPU_SIZE] for f in frames])
+    p_card = cls.predict(card_m, crops, classes)
+    p_cpu = cls.predict(cpu_m, crops, classes)
+    pred_err = max(abs(a[1] - b[1]) for pa, pb in zip(p_card, p_cpu)
+                   for a, b in zip(pa, pb))
+    same_rank = all([c for c, _ in a] == [c for c, _ in b]
+                    for a, b in zip(p_card, p_cpu))
+
+    def gate(model, dev):
+        logits = []
+
+        def classify_fn(x):
+            logits.append(model(torch.from_numpy(x).to(dev)).cpu())
+            return logits[-1]
+
+        with torch.no_grad():
+            kept = cls.apply_classifier(dets, frames, classify_fn,
+                                        imgsz=CLS_CPU_SIZE)
+        return kept, torch.cat(logits)
+
+    (kept_card, lg_card), (kept_cpu, lg_cpu) = (gate(card_m, CARD),
+                                                gate(cpu_m, "cpu"))
+    gate_equal = all(np.array_equal(a, b)
+                     for a, b in zip(kept_card, kept_cpu))
+    crop_argmax_equal = bool((lg_card.argmax(1) == lg_cpu.argmax(1)).all())
+    crop_logit_err = float((lg_card - lg_cpu).abs().max())
+    rec = {"phase": "classify_vs_cpu", "imgsz": CLS_CPU_SIZE,
+           "batch": CLS_CPU_BATCH, "steps": CLS_CPU_STEPS,
+           "optimizers": per_opt, "predict_max_prob_err": pred_err,
+           "predict_same_ranks": same_rank,
+           "detections": [len(d) for d in dets],
+           "kept": [len(k) for k in kept_card], "gate_equal": gate_equal,
+           "crops": int(lg_card.shape[0]),
+           "crop_argmax_equal": crop_argmax_equal,
+           "crop_logit_max_abs_err": crop_logit_err}
+    emit(rec)
+    if not (ok and pred_err <= 1e-4 and same_rank and gate_equal
+            and crop_argmax_equal and crop_logit_err <= 1e-3
+            and sum(len(d) for d in dets) > 0):
+        raise AssertionError(f"classify_vs_cpu: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2828,6 +3521,11 @@ def main() -> int:
         cli_launches = timed("detect_cli", phase_detect_cli, hub_weights,
                              agent_file)
         timed("raw_unprocess", phase_raw_unprocess)
+        timed("segment_train", phase_segment_train, smi)
+        timed("segment_vs_cpu", phase_segment_vs_cpu)
+        timed("segment_cli", phase_segment_cli)
+        timed("classify_train", phase_classify_train, smi)
+        timed("classify_vs_cpu", phase_classify_vs_cpu, hub_weights)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1

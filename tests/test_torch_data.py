@@ -51,6 +51,7 @@ from adaptiveisp_tpu_torch.detect import hyp as thyp
 from adaptiveisp_tpu_torch.detect import metrics as tmetrics
 from adaptiveisp_tpu_torch.obs import logging as tlogging
 from adaptiveisp_tpu_torch.obs.visualize import trajectory_strip
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IOUV = np.linspace(0.5, 0.95, 10)

@@ -59,6 +59,7 @@ from adaptiveisp_tpu_torch.detect import loss
 from adaptiveisp_tpu_torch.detect import train_detector as td
 from adaptiveisp_tpu_torch.detect import train_loop as tl
 from adaptiveisp_tpu_torch.detect.model import DetectionModel
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 SIZE = 64
 SPEC = {   # tests/test_rl_learning_gate.py's

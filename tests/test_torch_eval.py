@@ -63,6 +63,7 @@ from adaptiveisp_tpu_torch.obs.plots import plot_val_study
 from adaptiveisp_tpu_torch.policy.agent import Agent
 from configs.config_fast_filters import cfg as JFAST
 from test_torch_detect import flax_yolo_variables
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 MINI_SPEC = {   # tests/test_trainer_validator.py's
     "nc": 8,

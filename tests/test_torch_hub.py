@@ -39,6 +39,7 @@ from adaptiveisp_tpu_torch.serve.rest import ROUTE, DetectionServer
 from configs.config_fast_filters import cfg as JFAST
 
 from adaptiveisp_tpu_torch.configs.config_fast_filters import cfg as FAST
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 SIZE = 64
 BOX_ATOL, CONF_ATOL = 1e-2, 1e-5

@@ -30,6 +30,7 @@ from adaptiveisp_tpu_torch.detect.model import DetectionModel
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_TINY_SPEC
 from adaptiveisp_tpu_torch.policy.agent import Agent
 from adaptiveisp_tpu_torch.policy.value import Value
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 MIN_ENTRIES = 2048
 STD_RANGE = (0.95, 1.05)

@@ -33,6 +33,41 @@ CHEAP_XLA = ("--xla_backend_optimization_level=0 "
              "--xla_llvm_disable_expensive_passes=true")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread while a port test module runs.  A tier-1 run
+    has six workers on the host's cores, and torch's default of one
+    OpenMP thread per core in each worker oversubscribes them: the port's
+    test files took 1,780 s summed that way and 870 s on one thread each
+    (6 workers on 8 cores).  The other port test modules import this
+    fixture, which makes it theirs too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cheap_xla():
+    """XLA's cheapest CPU compile options while a port test module runs
+    (``jax_disable_most_optimizations``: backend optimisation level 0, no
+    expensive LLVM passes), as :data:`CHEAP_XLA` gives the subprocess
+    references: the JAX references are compile-bound, and the options
+    change their values by float32 rounding only.  The flag is restored
+    and the compiled executables dropped afterwards, so none reaches
+    another module.  Without JAX (the ``cuda`` runs) it does nothing."""
+    if importlib.util.find_spec("jax") is None:
+        yield
+        return
+    import jax
+
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+    jax.clear_caches()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

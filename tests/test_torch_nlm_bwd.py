@@ -38,6 +38,7 @@ from adaptiveisp_tpu_torch.ops.cuda import build
 from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
 from adaptiveisp_tpu_torch.ops.denoise import canon_gate
 from adaptiveisp_tpu_torch.ops.math import clip_grad_mask, rgb_to_luminance
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 DRGB_ATOL = 2e-5
 DH_RTOL, DH_ATOL = 2e-4, 1e-5

@@ -18,6 +18,7 @@ from adaptiveisp_tpu.ops import math as jmath
 from adaptiveisp_tpu_torch.config import Config
 from adaptiveisp_tpu_torch.ops import bank, masks
 from adaptiveisp_tpu_torch.ops import math as tmath
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 CFG, JCFG = Config(), JConfig()
 # float32 transcendental (exp/pow/cos/tanh) and summation-order differences

@@ -38,6 +38,7 @@ from adaptiveisp_tpu_torch.ops import denoise as td
 from adaptiveisp_tpu_torch.ops.cuda import build
 from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
 from adaptiveisp_tpu_torch.ops.cuda import pipeline as cp
+from test_torch_nlm import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 NLM_ATOL = 2e-5

@@ -21,6 +21,7 @@ from adaptiveisp_tpu_torch.config import Config
 from adaptiveisp_tpu_torch.convert import agent_from_flax
 from adaptiveisp_tpu_torch.policy import states as tstates
 from adaptiveisp_tpu_torch.policy.agent import Agent
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 CFG, JCFG = Config(), JConfig()
 

@@ -19,6 +19,7 @@ from PIL import Image
 
 from adaptiveisp_tpu_torch import render_isp
 from adaptiveisp_tpu_torch.config import Config
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PNG_ATOL = 1.0 / 255 + 2e-5   # the PNG floor plus the chain's tolerance
@@ -131,7 +132,8 @@ def test_port_imports_no_jax():
         "'detect.autoanchor', 'detect.autobatch', 'detect.train_detector', "
         "'detect.train_loop', 'obs.callbacks', 'obs.loggers', 'nn_init', "
         "'detect.activations', 'detect.ensemble', 'data.artifacts', "
-        "'serve.rest', 'detect_cli', 'raw.bayer', 'raw.unprocess')}\n"
+        "'serve.rest', 'detect_cli', 'raw.bayer', 'raw.unprocess', "
+        "'detect.segment', 'data.segment_dataset', 'classify')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -28,6 +28,7 @@ from adaptiveisp_tpu_torch.convert import agent_from_flax, yolo_from_flax
 from adaptiveisp_tpu_torch.detect import metrics as tmetrics
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_TINY_SPEC
 from adaptiveisp_tpu_torch.eval.rollout import rollout
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 CFG, JCFG = Config(), JConfig()
 STEPS, SEED = 5, 21

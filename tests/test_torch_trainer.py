@@ -45,6 +45,7 @@ from adaptiveisp_tpu_torch.policy.agent import Agent
 from adaptiveisp_tpu_torch.train import checkpoint as ckpt
 from adaptiveisp_tpu_torch.train.trainer import Trainer
 from configs.config_fast_filters import cfg as JFAST
+from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 KW = dict(replay_memory_size=8, val_freq=10 ** 9, save_model_freq=2,
           print_freq=1, summary_freq=1, dropout_keep_prob=1.0)
