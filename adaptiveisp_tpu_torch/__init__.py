@@ -13,4 +13,20 @@ other CLIs) run on ``cuda`` unless the caller passes ``device="cpu"``;
 
 from adaptiveisp_tpu_torch.config import Config, TrainConfig, DEFAULT_CONFIG
 
-__all__ = ["Config", "TrainConfig", "DEFAULT_CONFIG"]
+__all__ = ["Config", "TrainConfig", "DEFAULT_CONFIG",
+           "load_adaptive_isp", "load_detector"]
+
+
+def load_adaptive_isp(*args, **kw):
+    """Hub-style one-call loader (see ``adaptiveisp_tpu_torch.api``)."""
+    from adaptiveisp_tpu_torch import api
+
+    return api.load_adaptive_isp(*args, **kw)
+
+
+def load_detector(*args, **kw):
+    """Hub-style one-call detector loader (see
+    ``adaptiveisp_tpu_torch.api``)."""
+    from adaptiveisp_tpu_torch import api
+
+    return api.load_detector(*args, **kw)

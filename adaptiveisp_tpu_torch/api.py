@@ -285,15 +285,24 @@ class Detector:
         return Detections(list(ims), per_image, self.names, list(paths))
 
 
+def _check_imgsz(imgsz):
+    """JAX's loaders take the image size to build their variables; a torch
+    module needs no shape, so the port only checks it."""
+    if isinstance(imgsz, bool) or not isinstance(imgsz, int) or imgsz <= 0:
+        raise ValueError(f"imgsz must be a positive int, got {imgsz!r}")
+
+
 def load_adaptive_isp(agent_ckpt: Optional[str] = None,
-                      cfg: Config = DEFAULT_CONFIG, steps: int = 5,
-                      seed: int = 0, device="cuda",
+                      cfg: Config = DEFAULT_CONFIG, imgsz: int = 512,
+                      steps: int = 5, seed: int = 0, *, device="cuda",
                       state_dict: Optional[Mapping] = None) -> AdaptiveISP:
     """The agent in eval mode on ``device``: seeded random weights, or
     ``agent_ckpt`` (a checkpoint directory, the port's weights-only file or
     the JAX package's weights-only pickle, through
     ``train.checkpoint.load_agent_weights``), or ``state_dict`` (e.g. from
-    ``convert.agent_from_flax``)."""
+    ``convert.agent_from_flax``).  The positional order is JAX's;
+    ``imgsz`` is checked and otherwise unused."""
+    _check_imgsz(imgsz)
     dev = resolve_device(device)
     agent = _seeded(seed, lambda: Agent(cfg))
     if agent_ckpt:
@@ -350,10 +359,13 @@ def load_detector(weights=None, spec=None, nc: Optional[int] = None,
     return Detector(model.to(dev).eval(), spec, dev, names=names,
                     augment=augment)
 
-def load_value(cfg: Config = DEFAULT_CONFIG, seed: int = 0, device="cuda",
-               state_dict: Optional[Mapping] = None) -> Value:
+def load_value(cfg: Config = DEFAULT_CONFIG, imgsz: int = 512, seed: int = 0,
+               *, device="cuda", state_dict: Optional[Mapping] = None
+               ) -> Value:
     """The critic with seeded random weights or ``state_dict`` (e.g. from
-    ``convert.value_from_flax``), in eval mode on ``device``."""
+    ``convert.value_from_flax``), in eval mode on ``device``.  The
+    positional order is JAX's; ``imgsz`` is checked and otherwise unused."""
+    _check_imgsz(imgsz)
     dev = resolve_device(device)
     value = _seeded(seed, lambda: Value(cfg))
     if state_dict is not None:

@@ -41,6 +41,7 @@ from adaptiveisp_tpu_torch.detect.train_detector import (
 )
 from adaptiveisp_tpu_torch.nn_init import flax_init_
 from adaptiveisp_tpu_torch.obs.plots import plots_available
+from adaptiveisp_tpu_torch.policy.nets import dropout
 from adaptiveisp_tpu_torch.train.optim import cosine_decay_schedule
 
 HEAD_WIDTH = 1280  # efficientnet_b0's (the reference Classify head)
@@ -59,16 +60,21 @@ def trunk_spec(spec=None, cutoff: Optional[int] = None):
 
 
 class Classify(nn.Module):
-    """1x1 ConvBNAct -> global mean -> dropout -> dense."""
+    """1x1 ConvBNAct -> global mean -> dropout -> dense.  In train mode the
+    dropout mask comes from ``generator`` (flax's ``dropout`` rng, as the
+    agent's; needed when ``dropout > 0``)."""
 
     def __init__(self, c1: int, nc: int, dropout: float = 0.0):
         super().__init__()
         self.conv = ConvBNAct(c1, HEAD_WIDTH, 1, 1)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
         self.linear = nn.Linear(HEAD_WIDTH, nc)
 
-    def forward(self, x):
-        return self.linear(self.drop(self.conv(x).mean(dim=(2, 3))))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        f = self.conv(x).mean(dim=(2, 3))
+        if self.training:
+            f = dropout(f, self.dropout, generator)
+        return self.linear(f)
 
 
 class ClassificationModel(nn.Module):
@@ -83,7 +89,9 @@ class ClassificationModel(nn.Module):
             list(trunk.model) + [Classify(trunk.channels[-1], nc, dropout)])
         flax_init_(self)
 
-    def forward(self, x_nhwc):
+    def forward(self, x_nhwc, generator: Optional[torch.Generator] = None):
+        """NHWC images -> logits; ``generator`` draws the head's dropout
+        mask in train mode."""
         x = x_nhwc.permute(0, 3, 1, 2)
         outputs: List = []
         for frm, m in zip(self.froms, self.model):
@@ -91,7 +99,7 @@ class ClassificationModel(nn.Module):
                 inp = x if frm == -1 else outputs[frm]
             else:
                 inp = [x if j == -1 else outputs[j] for j in frm]
-            x = m(inp)
+            x = m(inp, generator) if isinstance(m, Classify) else m(inp)
             outputs.append(x)
         return x
 
@@ -203,6 +211,7 @@ class ClsTrainState:
     optimizer: DetectorOptimizer
     ema: ModelEMA
     step: int = 0
+    generator: Optional[torch.Generator] = None   # the head's dropout
 
 
 def make_classifier_train_step(cfg: ClsTrainConfig):
@@ -213,7 +222,7 @@ def make_classifier_train_step(cfg: ClsTrainConfig):
     def step(state: ClsTrainState, images, labels):
         model = state.model
         model.train()
-        out = model(images)
+        out = model(images, generator=state.generator)
         loss = smoothed_cross_entropy(out, labels, cfg.label_smoothing)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -245,13 +254,15 @@ def topk_accuracy(model, ds: FolderDataset, batch_size: int):
 class ClassifierTrainer:
     """Epoch loop: train -> val top-1/top-5 on the EMA -> best/last ->
     early stop; ``results.csv`` per epoch.  ``model`` is moved to
-    ``device`` and trained in place."""
+    ``device`` and trained in place; the head's dropout draws from a
+    generator on that device seeded from ``seed`` (JAX's dropout key), so
+    two runs with one seed are equal."""
 
     def __init__(self, model, train_ds: FolderDataset,
                  val_ds: Optional[FolderDataset] = None,
                  cfg: Optional[ClsTrainConfig] = None,
                  save_dir: Optional[str] = None, mesh=None,
-                 device="cuda"):
+                 device="cuda", seed: int = 0):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (data-parallel classifier training) waits for the "
@@ -265,8 +276,10 @@ class ClassifierTrainer:
         steps_per_epoch = max(1, len(train_ds) // self.cfg.batch_size)
         tx = make_classifier_optimizer(self.cfg,
                                        self.cfg.epochs * steps_per_epoch)
-        self.state = ClsTrainState(self.model, tx(self.model),
-                                   ModelEMA(self.model, self.cfg.ema_decay))
+        self.state = ClsTrainState(
+            self.model, tx(self.model), ModelEMA(self.model,
+                                                 self.cfg.ema_decay),
+            generator=torch.Generator(device=self.device).manual_seed(seed))
         self.step_fn = make_classifier_train_step(self.cfg)
         self._eval_model = copy.deepcopy(self.model).eval()
         self.stopper = EarlyStopping(self.cfg.patience)
@@ -482,7 +495,8 @@ def main(argv=None):
         args.save_dir = increment_path(args.save_dir,
                                        exist_ok=args.exist_ok)
     trainer = ClassifierTrainer(model, train_ds, val_ds, cfg=cfg,
-                                save_dir=args.save_dir, device=args.device)
+                                save_dir=args.save_dir, device=args.device,
+                                seed=args.seed)
     history = trainer.fit()
     for h in history:
         print(f"epoch {h['epoch']}: loss {h['loss']:.4f} "

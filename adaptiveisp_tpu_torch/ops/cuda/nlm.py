@@ -1,5 +1,5 @@
 """Gated gray NLM on the GPU: wrappers of ``csrc/nlm_fwd.cu`` (K1) and
-``csrc/nlm_bwd.cu`` (K2), and the autograd function around them.
+``csrc/nlm_bwd.cu`` (K2), and the registered operators around them.
 
 K1 replaces the TPU kernel ``adaptiveisp_tpu/ops/pallas/nlm.py::_nlm_kernel``
 and its symmetry-halved variant ``_nlm_kernel_sym`` (K3): the two compute
@@ -8,16 +8,24 @@ centre (w_{-d}(p) = w_d(p - d)).  So ``sym`` is kept, as JAX's
 ``nlm_gray_pallas(sym=)`` has it, and both of its values launch K1.  K2
 replaces their fused adjoint ``_nlm_bwd_kernel``.  The plain PyTorch twins
 are :func:`adaptiveisp_tpu_torch.ops.denoise.nlm_gray_uw` and
-:func:`adaptiveisp_tpu_torch.ops.denoise.nlm_gray_bwd_plain`;
-``ops.denoise.nlm_gray_dispatch`` routes CPU tensors to the plain forward
-(differentiated by autograd) and CUDA tensors to :class:`NLMGray`.  The
-wrappers only launch their kernels: they raise on anything else, a CPU
-tensor included.
+:func:`adaptiveisp_tpu_torch.ops.denoise.nlm_gray_bwd_plain`.
+
+``torch.ops.adaptiveisp_tpu_torch.nlm_gray`` (:func:`nlm_gray_op`) is the
+one route to K1: a registered operator whose CUDA route launches K1, whose
+CPU kernel is the plain version, whose fake tensors build and launch
+nothing, and whose backward is a second operator, ``nlm_gray_bwd`` (K2 on
+the card, the plain chain's adjoint on the CPU).  Being opaque, it is one
+node in a ``torch.export`` program (``detect/export.py``), so such a
+program launches K1 on the card and runs the plain version on the CPU.
+``ops.denoise.nlm_gray_dispatch`` calls it on both devices.  The wrappers
+:func:`nlm_gray_fwd` and :func:`nlm_gray_bwd` only launch their kernels:
+they raise on anything else, a CPU tensor included.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -127,21 +135,97 @@ def nlm_gray_bwd(rgb, h, gate, v, u, wsum):
     return drgb, part.sum(dim=1, keepdim=True)
 
 
-class NLMGray(torch.autograd.Function):
-    """clip(U, 0, 1) of K1 (with ``sym`` either way), differentiated by K2
-    (the JAX package's ``custom_vjp`` pair at
-    ``ops/pallas/nlm.py:248-264``): the clip and the h-relu take JAX's tie
+# --------------------------------------------------------------------------- #
+# the registered operators: one opaque node per call for autograd, fake
+# tensors and ``torch.export``
+# --------------------------------------------------------------------------- #
+Tensor = torch.Tensor
+
+
+def _gated_on(gate):
+    return (gate.reshape(-1) != 0).nonzero()[:, 0]
+
+
+@torch.library.custom_op("adaptiveisp_tpu_torch::nlm_gray", mutates_args=())
+def nlm_gray_op(rgb: Tensor, h: Tensor, gate: Tensor,
+                sym: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """Gated gray NLM as one operator: rgb [N, H, W, 3], h [N, 1], gate
+    [N, 1], float32.  Returns (clip(U, 0, 1), U, W); U and W are the
+    residuals that K2 reads, zero for a gated-off image, and take no
+    gradient.  A CUDA tensor launches K1 (this default route raises on any
+    other device); a CPU tensor runs the plain version on the gated-on
+    images only.  The JAX package's ``custom_vjp`` pair at
+    ``ops/pallas/nlm.py:248-264``: the clip and the h-relu take JAX's tie
     gradients (0.5 at an exact bound); the gate gets no gradient."""
+    u, wsum = nlm_gray_fwd(rgb, h, gate, sym=sym)
+    return torch.clamp(u, 0.0, 1.0), u, wsum
 
-    @staticmethod
-    def forward(ctx, rgb, h, gate, sym=False):
-        u, wsum = nlm_gray_fwd(rgb, h, gate, sym=sym)
-        ctx.save_for_backward(rgb, h, gate, u, wsum)
-        return torch.clamp(u, 0.0, 1.0)
 
-    @staticmethod
-    def backward(ctx, g):
-        rgb, h, gate, u, wsum = ctx.saved_tensors
-        v = (g * clip_grad_mask(u, 0.0, 1.0)).contiguous()
-        drgb, dhh = nlm_gray_bwd(rgb, h, gate, v, u, wsum)
-        return drgb, dhh * clip_grad_mask(h, 0.0), None, None
+@nlm_gray_op.register_kernel("cpu")
+def _nlm_gray_cpu(rgb, h, gate, sym=False):
+    from adaptiveisp_tpu_torch.ops.denoise import nlm_gray_uw
+
+    u = torch.zeros_like(rgb)
+    wsum = rgb.new_zeros(rgb.shape[:3] + (1,))
+    idx = _gated_on(gate)
+    if idx.numel():
+        u_on, w_on = nlm_gray_uw(rgb[idx], h[idx])
+        u, wsum = u.index_copy(0, idx, u_on), wsum.index_copy(0, idx, w_on)
+    return torch.clamp(u, 0.0, 1.0), u, wsum
+
+
+@nlm_gray_op.register_fake
+def _nlm_gray_fake(rgb, h, gate, sym=False):
+    return (torch.empty_like(rgb), torch.empty_like(rgb),
+            rgb.new_empty(rgb.shape[:3] + (1,)))
+
+
+@torch.library.custom_op("adaptiveisp_tpu_torch::nlm_gray_bwd",
+                         mutates_args=())
+def nlm_gray_bwd_op(rgb: Tensor, h: Tensor, gate: Tensor, v: Tensor,
+                    u: Tensor, wsum: Tensor) -> Tuple[Tensor, Tensor]:
+    """(dL/drgb, dL/dhh) of U for the cotangent v: K2 for a CUDA tensor,
+    the plain chain's adjoint (``ops.denoise.nlm_gray_bwd_plain``) on the
+    gated-on images for a CPU tensor."""
+    return nlm_gray_bwd(rgb, h, gate, v, u, wsum)
+
+
+@nlm_gray_bwd_op.register_kernel("cpu")
+def _nlm_gray_bwd_cpu(rgb, h, gate, v, u, wsum):
+    from adaptiveisp_tpu_torch.ops.denoise import nlm_gray_bwd_plain
+
+    drgb, dhh = torch.zeros_like(rgb), torch.zeros_like(h)
+    idx = _gated_on(gate)
+    if idx.numel():
+        dr_on, dh_on = nlm_gray_bwd_plain(rgb[idx], h[idx], gate[idx],
+                                          v[idx], u[idx], wsum[idx])
+        drgb, dhh = drgb.index_copy(0, idx, dr_on), dhh.index_copy(
+            0, idx, dh_on)
+    return drgb, dhh
+
+
+@nlm_gray_bwd_op.register_fake
+def _nlm_gray_bwd_fake(rgb, h, gate, v, u, wsum):
+    return torch.empty_like(rgb), torch.empty_like(h)
+
+
+def _setup_context(ctx, inputs, output):
+    rgb, h, gate, _ = inputs
+    _, u, wsum = output
+    ctx.save_for_backward(rgb, h, gate, u, wsum)
+    ctx.mark_non_differentiable(u, wsum)
+
+
+def _backward(ctx, g, _gu, _gw):
+    rgb, h, gate, u, wsum = ctx.saved_tensors
+    v = (g * clip_grad_mask(u, 0.0, 1.0)).contiguous()
+    drgb, dhh = nlm_gray_bwd_op(rgb, h, gate, v, u, wsum)
+    return drgb, dhh * clip_grad_mask(h, 0.0), None, None
+
+
+nlm_gray_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def nlm_gray(rgb, h, gate, sym: bool = False):
+    """clip(U, 0, 1) of :func:`nlm_gray_op`, differentiable in rgb and h."""
+    return nlm_gray_op(rgb, h, gate, sym)[0]

@@ -2,7 +2,7 @@
 
 :func:`nlm_gray` is the plain PyTorch version: 121 circular ``torch.roll``
 shifts with a separable 5x5 box sum, the JAX package's eager chain.  With
-:func:`nlm_gray_bwd_plain` (its adjoint, by autograd) it is the twin of the
+:func:`nlm_gray_bwd_plain` (its adjoint, written out) it is the twin of the
 CUDA kernels in :mod:`adaptiveisp_tpu_torch.ops.cuda.nlm`;
 :func:`nlm_gray_dispatch` picks between the two by the tensor's device.
 
@@ -13,7 +13,11 @@ from __future__ import annotations
 
 import torch
 
-from adaptiveisp_tpu_torch.ops.math import clip, rgb_to_luminance
+from adaptiveisp_tpu_torch.ops.math import (
+    clip,
+    clip_grad_mask,
+    rgb_to_luminance,
+)
 
 EPS = 1e-8
 
@@ -76,20 +80,51 @@ def _nlm_uw_hh(rgb, hh, search_window_size: int = 11, patch_size: int = 5):
 
 def nlm_gray_bwd_plain(rgb, h, gate, v, u=None, wsum=None):
     """Plain twin of the K2 kernel, with its signature: the adjoint of the
-    unclipped (U, W) chain for the cotangent v on U, by autograd.
+    unclipped (U, W) chain for the cotangent v on U, written out offset by
+    offset in the forward's order (no autograd, so it also runs inside a
+    registered operator's kernel, below autograd and under any dispatch
+    mode).
 
     Returns (dL/drgb [N, H, W, 3], dL/dhh [N, 1]) for hh = relu(h) + eps;
-    gated-off images get exactly 0.  ``u`` and ``wsum`` (the kernel's saved
-    forward outputs) are not needed here: the chain is recomputed.
+    gated-off images get exactly 0.  ``u`` and ``wsum`` are the forward's
+    outputs (recomputed when not given).  With a = v / W and
+    q = -(sum_c v_c U_c) / W, each offset d with weight w = exp(-s / hh),
+    s = sqrt(b), b = box5((y - S_d y)^2), adds S_-d(w a) to dL/drgb,
+    g = a . S_d rgb + q times w s / hh^2 to dL/dhh, and through
+    db = -g w / (2 hh s) (0 where b = 0) the luminance adjoint
+    Z - S_-d Z, Z = 2 (y - S_d y) box5(db); the luminance's clip takes
+    JAX's tie gradient.
     """
     n = rgb.shape[0]
     on = canon_gate(gate, n, rgb.device) != 0
-    with torch.enable_grad():
-        x = rgb.detach().requires_grad_(True)
-        hh = (clip(h.detach(), 0.0) + EPS)[:, None, None, :].requires_grad_(
-            True)
-        u_p, _ = _nlm_uw_hh(x, hh)
-        drgb, dhh = torch.autograd.grad(u_p, (x, hh), v)
+    rgb, v = rgb.detach(), v.detach()
+    hh = (clip(h.detach(), 0.0) + EPS)[:, None, None, :]
+    if u is None or wsum is None:
+        u, wsum = _nlm_uw_hh(rgb, hh)
+    r, y = 5, rgb_to_luminance(rgb)
+    a = v / wsum
+    q = -(v * u).sum(-1, keepdim=True) / wsum
+    drgb, dy, dhh = torch.zeros_like(rgb), torch.zeros_like(y), 0.0
+    for dx in range(-r, r + 1):
+        for dyy in range(-r, r + 1):
+            diff = y - torch.roll(y, (dyy, dx), dims=(1, 2))
+            b = box_sum(diff * diff, 5)
+            pos = b > 0.0
+            dist = _safe_sqrt(b)
+            w = torch.exp(-dist / hh)
+            g = (a * torch.roll(rgb, (dyy, dx), dims=(1, 2))).sum(
+                -1, keepdim=True) + q
+            drgb = drgb + torch.roll(a * w, (-dyy, -dx), dims=(1, 2))
+            gw = g * w
+            dhh = dhh + (gw * dist).sum((1, 2, 3), keepdim=True)
+            db = torch.where(pos, -0.5 * gw / (
+                hh * torch.where(pos, dist, torch.ones_like(dist))), 0.0)
+            z = 2.0 * diff * box_sum(db, 5)
+            dy = dy + z - torch.roll(z, (-dyy, -dx), dims=(1, 2))
+    lum = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype,
+                       device=rgb.device)
+    drgb = drgb + dy * lum * clip_grad_mask(rgb, 0.0, 1.0)
+    dhh = dhh / (hh * hh)
     return (torch.where(on.reshape(n, 1, 1, 1), drgb, 0.0),
             torch.where(on, dhh.reshape(n, 1), 0.0))
 
@@ -105,29 +140,22 @@ def canon_gate(gate, n: int, device):
 
 
 def nlm_gray_dispatch(rgb, h, gate=None):
-    """Gated gray NLM: the CUDA kernels for a CUDA tensor, the plain version
-    for a CPU tensor.
+    """Gated gray NLM through the registered operator
+    ``adaptiveisp_tpu_torch::nlm_gray`` (``ops.cuda.nlm``): the CUDA kernels
+    for a CUDA tensor, the plain version for a CPU tensor.
 
     h: [N, 1], or [1, 1] for one strength shared by every image (a fixed
-    pipeline's parameter).  gate: optional [N] / [N, 1] blend weights.
-    Images whose gate is exactly 0 return zeros, and neither path computes
-    them: the kernel skips their work, the plain version runs on the other
-    images alone (each image's result depends on that image only).  Both
-    are differentiable: on the card through ``NLMGray`` (K1 forward, K2
-    backward; a shared strength gets the sum of the images' gradients), on
-    the CPU by autograd of the plain chain.
+    pipeline's parameter; expanded to [N, 1], so it gets the sum of the
+    images' gradients).  gate: optional [N] / [N, 1] blend weights.  Images
+    whose gate is exactly 0 return zeros, and neither route computes them:
+    the kernel skips their work, the plain version runs on the other images
+    alone (each image's result depends on that image only).  Both are
+    differentiable: K1 forward and K2 backward on the card, autograd of the
+    plain chain on the CPU.
     """
-    n = rgb.shape[0]
-    gate = canon_gate(gate, n, rgb.device)
-    if rgb.is_cuda:
-        from adaptiveisp_tpu_torch.ops.cuda.nlm import NLMGray
+    from adaptiveisp_tpu_torch.ops.cuda.nlm import nlm_gray as nlm_gray_k
 
-        return NLMGray.apply(rgb.contiguous(),
-                             h.to(torch.float32).expand(n, 1).contiguous(),
-                             gate)
-    out = torch.zeros_like(rgb)
-    idx = (gate.reshape(n) != 0).nonzero()[:, 0]
-    if idx.numel():
-        out = out.index_copy(0, idx, nlm_gray(
-            rgb[idx], h if h.shape[0] == 1 else h[idx]))
-    return out
+    n = rgb.shape[0]
+    return nlm_gray_k(rgb.contiguous(),
+                      h.to(torch.float32).expand(n, 1).contiguous(),
+                      canon_gate(gate, n, rgb.device))

@@ -12,6 +12,11 @@ retouched image.  In train mode the agent samples its action, and both
 networks use flax BatchNorm statistics (``policy/nets.py``); the critic runs
 twice, its running statistics chained from the first call to the second.
 Per-network clip by global norm and Adam live in :mod:`.optim`.
+
+The phases run under ``torch.profiler.record_function`` scopes named as the
+JAX step's ``named_scope``s (``agent_fwd``, ``yolo_input``,
+``yolo_retouch``, ``value_net``, ``optimizer``): a trace of the step
+(``obs/trace.py``) puts each kernel, the backward's too, in its component.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from adaptiveisp_tpu_torch.detect.loss import LossHyp, per_image_loss_batch
 from adaptiveisp_tpu_torch.detect.model import frozen
@@ -88,8 +94,9 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         else:
             imgs, z, states, targets, tmask = batch
 
-        retouch, new_states, surrogate, penalty, _, info = agent(
-            imgs, z, states, progress, train=True, generator=generator)
+        with record_function("agent_fwd"):
+            retouch, new_states, surrogate, penalty, _, info = agent(
+                imgs, z, states, progress, train=True, generator=generator)
         stopped = new_states[:, STATE_STOPPED_DIM:STATE_STOPPED_DIM + 1]
         if mark:
             mark("agent")
@@ -97,11 +104,12 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         if cached_input_loss:
             detect_input_loss = loss_in
         else:
-            with torch.no_grad():
+            with torch.no_grad(), record_function("yolo_input"):
                 detect_input_loss, _ = _detector_loss(
                     yolo, imgs, targets, tmask, anchors_grid, hyp, cfg)
-        detect_retouch_loss, retouch_comps = _detector_loss(
-            yolo, retouch, targets, tmask, anchors_grid, hyp, cfg)
+        with record_function("yolo_retouch"):
+            detect_retouch_loss, retouch_comps = _detector_loss(
+                yolo, retouch, targets, tmask, anchors_grid, hyp, cfg)
         if mark:
             mark("detector")
 
@@ -111,8 +119,9 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         if cfg.use_penalty:
             reward = reward - penalty
 
-        old_value = value(imgs, states)
-        new_value = value(retouch, new_states)
+        with record_function("value_net"):
+            old_value = value(imgs, states)
+            new_value = value(retouch, new_states)
         clear_final = (new_states[:, STATE_STEP_DIM:STATE_STEP_DIM + 1]
                        > cfg.maximum_trajectory_length).to(torch.float32)
         new_value = new_value * (1.0 - clear_final)
@@ -144,8 +153,9 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         (value_loss + agent_loss).backward()
         if mark:
             mark("backward")
-        state.agent_opt.step()
-        state.value_opt.step()
+        with record_function("optimizer"):
+            state.agent_opt.step()
+            state.value_opt.step()
         state.step += 1
         if mark:
             mark("optimizer")

@@ -24,7 +24,8 @@ Phases, each printing one JSON line:
      launched while the card still writes a 128 MB buffer, so that the
      events bracket the kernel and it reads past a flushed L2) and the
      call (``render_pipeline_fused``); one profiled call, whose only device
-     work must be K4; then ``NLMGray(sym=True)`` forward and backward once
+     work must be K4; then the registered operator ``nlm_gray`` with
+     ``sym=True`` forward and backward once
      (K1, then K2; the launch counts of this run are the ``kernel_sym``
      path);
   4. serving: the port's serving path at full width, through the user entry
@@ -157,6 +158,22 @@ Phases, each printing one JSON line:
      ``predict`` and ``apply_classifier`` over the hub phase's YOLOv3
      detections; the segmentation and classification phases launch none
      of K1-K4 (their counts are printed);
+ 26. export: the Config() agent biased to denoise through
+     ``detect.export.export_adaptive_isp`` on the card (batch 1 @ 512, 5
+     steps), saved, reloaded and run (launch counts read around that run:
+     K1 once a step) against the eager rollout on the card, then moved to
+     the CPU against the port's CPU rollout; full YOLOv3 through
+     ``export_detector`` the same way; ``python -m
+     adaptiveisp_tpu_torch.export_cli --include pt2 variables --validate``
+     as a subprocess;
+ 27. triton: ``serve.triton.TritonRemoteModel`` against an in-script
+     KServe-v2 server backed by YOLOv3 on the card (640 px, batch 1),
+     outputs bit for bit the direct forward's, latency median and p90;
+ 28. trace_breakdown: three bf16 train steps at batch 8 @ 512 under
+     ``obs.profile.trace``, device time by the step's components
+     (``obs.trace.component_breakdown``), MFU against
+     ``obs.roofline.device_peaks``; fails when more than 15 % of the
+     device time falls outside every component;
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
@@ -167,7 +184,7 @@ read just after: serving, train_bf16, train_f32, render, trainer,
 train_isp, train_isp_host_pool, validation_b1_free, validation_b1_forced,
 validation_b8_blend, validation_b1_merge_tta, val_cli, hr_render,
 train_isp_val, fixed_pipeline, fixed_step_fused, rest, detect_cli,
-kernel_sym; the CPU
+export, kernel_sym; the CPU
 comparisons' card runs count on none), the card's name and power limit,
 and as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, with no result line, without a CUDA device or
@@ -405,10 +422,12 @@ def phase_kernel_bwd():
 def phase_kernel():
     """K1 against its plain version on the card, and ``sym=True`` (JAX's
     K3, served by K1) bit for bit against ``sym=False``; in the main case
-    the two timed in turns (sym=False, sym=True, sym=True, sym=False)."""
+    the two timed in turns (sym=False, sym=True, sym=True, sym=False), and
+    the wrapper against the registered operator ``nlm_gray`` that the port
+    calls (``op_ms``: the operator's dispatch added), in turns too."""
     import torch
 
-    from adaptiveisp_tpu_torch.ops.cuda.nlm import nlm_gray_fwd
+    from adaptiveisp_tpu_torch.ops.cuda.nlm import nlm_gray_fwd, nlm_gray_op
     from adaptiveisp_tpu_torch.ops.denoise import nlm_gray_uw
 
     dev = torch.device("cuda")
@@ -444,10 +463,18 @@ def phase_kernel():
             turns = [cuda_time_ms(lambda sym=sym: nlm_gray_fwd(
                 rgb, h, gate, sym=sym), 50) for sym in (False, True, True,
                                                          False)]
+            # the registered operator (the one route the port takes to K1)
+            # against the bare wrapper, in turns
+            calls = (lambda: nlm_gray_fwd(rgb, h, gate),
+                     lambda: nlm_gray_op(rgb, h, gate, False))
+            op_turns = [cuda_time_ms(calls[k], 50) for k in (0, 1, 1, 0)]
             rec.update({"ms": float(np.median([turns[0], turns[3]])),
                         "sym_ms": float(np.median(turns[1:3])),
+                        "op_ms": float(np.median(op_turns[1:3])),
                         "ms_turns": {"sym_false": [turns[0], turns[3]],
-                                     "sym_true": turns[1:3]},
+                                     "sym_true": turns[1:3],
+                                     "wrapper": [op_turns[0], op_turns[3]],
+                                     "op": op_turns[1:3]},
                         "plain_ms": cuda_time_ms(
                             lambda: nlm_gray_uw(rgb, h), 20)})
             rec.update(nlm_bound(int((gate_np != 0).sum()), n, hgt, wid))
@@ -669,13 +696,13 @@ def profile_fused_call(cfg, img, stages):
 
 
 def phase_kernel_sym_path():
-    """The path of JAX's K3 in the port: ``NLMGray`` with ``sym=True``
-    forward and backward once (K1, then K2), launch counts read around it,
-    against autograd of the plain chain."""
+    """The path of JAX's K3 in the port: the registered operator
+    ``nlm_gray`` with ``sym=True`` forward and backward once (K1, then K2),
+    launch counts read around it, against autograd of the plain chain."""
     import torch
 
     from adaptiveisp_tpu_torch.ops.cuda import build
-    from adaptiveisp_tpu_torch.ops.cuda.nlm import NLMGray
+    from adaptiveisp_tpu_torch.ops.cuda.nlm import nlm_gray as nlm_op
     from adaptiveisp_tpu_torch.ops.denoise import nlm_gray
 
     dev = torch.device("cuda")
@@ -687,7 +714,7 @@ def phase_kernel_sym_path():
     hk = h.clone().requires_grad_(True)
     torch.cuda.synchronize()
     build.reset_launches()
-    out = NLMGray.apply(x, hk, gate, True)
+    out = nlm_op(x, hk, gate, True)
     out.backward(g)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
@@ -708,7 +735,7 @@ def phase_kernel_sym_path():
           "tolerance": {"out_atol": 2e-5, "drgb_atol": 2e-5,
                         "dh_rtol": 2e-4, "dh_atol": 1e-5}, "ok": ok})
     if not ok:
-        raise AssertionError("NLMGray(sym=True) disagrees with the plain "
+        raise AssertionError("nlm_gray(sym=True) disagrees with the plain "
                              "chain or launched the wrong kernels")
     return launches
 
@@ -3477,6 +3504,345 @@ def phase_classify_vs_cpu(hub_weights):
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# export, the Triton client, and the train step's device time by component
+# --------------------------------------------------------------------------- #
+EXPORT_SIZE, EXPORT_BATCH = 512, 1
+EXPORT_ATOL = 1e-5      # the reloaded program against the eager run, card
+TRITON_SIZE, TRITON_REQUESTS = 640, 8
+TRACE_STEPS = 3
+TRACE_OTHER_MAX = 0.15  # share of device time left outside every component
+
+
+def _smoke_dir(name):
+    root = Path(__file__).resolve().parent / "build" / name
+    root.mkdir(parents=True, exist_ok=True)
+    return root
+
+
+def phase_export(smi):
+    """``detect.export`` on the card at full width: the Config() agent
+    biased to denoise (``_denoise_agent``) through ``export_adaptive_isp``
+    at batch 1 @ 512, 5 steps; saved, loaded (``load_program``) and run,
+    its launches read around the run (K1 once a step), against the eager
+    rollout on the card (within EXPORT_ATOL); the same program moved to the
+    CPU (``move_to_device_pass``) against the port's CPU rollout (the
+    serving phase's card-against-CPU tolerance, 1e-4, selections equal);
+    then full YOLOv3 (``spread_detector_state`` weights) through
+    ``export_detector`` at 512 the same way (the CPU side at the hub
+    phase's tolerances); then ``python -m adaptiveisp_tpu_torch.export_cli
+    --include pt2 variables --validate`` once as a subprocess.  Returns
+    the launch counts of the reloaded rollout's run."""
+    import torch
+    from torch.export.passes import move_to_device_pass
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.detect import export as ex
+    from adaptiveisp_tpu_torch.detect.model import decode_predictions
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
+    from adaptiveisp_tpu_torch.eval.rollout import no_pipeline, rollout
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    root = _smoke_dir("export_smoke")
+    cfg = Config()
+    sd = _denoise_agent(cfg)
+    isp = api.load_adaptive_isp(None, cfg, EXPORT_SIZE, STEPS,
+                                device="cuda", state_dict=sd)
+    t0 = time.perf_counter()
+    path = ex.export_adaptive_isp(cfg, isp.agent, str(root / "isp.pt2"),
+                                  imgsz=EXPORT_SIZE, steps=STEPS,
+                                  batch=EXPORT_BATCH)
+    t1 = time.perf_counter()
+    program = ex.load_program(path)
+    t2 = time.perf_counter()
+    nodes = [str(n.target) for gm in program.graph_module.modules()
+             if isinstance(gm, torch.fx.GraphModule)
+             for n in gm.graph.nodes if n.op == "call_function"]
+    rng = np.random.RandomState(13)
+    args = [torch.from_numpy(a) for a in (
+        rng.rand(EXPORT_BATCH, EXPORT_SIZE, EXPORT_SIZE, 3).astype(
+            np.float32),
+        rng.randn(STEPS, EXPORT_BATCH, cfg.z_dim).astype(np.float32),
+        np.zeros((EXPORT_BATCH, cfg.num_state_dim), np.float32))]
+    args_g = [a.cuda() for a in args]
+    run = program.module()
+    with torch.no_grad():
+        run(*args_g)   # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got = run(*args_g)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        program_ms = cuda_time_ms(lambda: run(*args_g), REPS)
+        eager_ms = cuda_time_ms(lambda: rollout(
+            isp.agent, *args_g, no_pipeline(STEPS)), REPS)
+    want = rollout(isp.agent, *args_g, no_pipeline(STEPS))
+    err = {k: float((g.float() - w.float()).abs().max())
+           for k, g, w in zip(("image", "states", "selected"), got,
+                              (want.image, want.states, want.selected))}
+    # the same program on the CPU against the port's CPU rollout
+    cpu_prog = move_to_device_pass(program, "cpu").module()
+    isp_c = api.load_adaptive_isp(None, cfg, EXPORT_SIZE, STEPS,
+                                  device="cpu", state_dict=sd)
+    with torch.no_grad():
+        got_c = cpu_prog(*args)
+    want_c = rollout(isp_c.agent, *args, no_pipeline(STEPS))
+    err_cpu_prog = float((got_c[0] - want_c.image).abs().max())
+    err_card_cpu = float((got[0].cpu() - got_c[0]).abs().max())
+    sel_equal = bool(torch.equal(got[2].cpu(), got_c[2]))
+    rollout_rec = {
+        "size": EXPORT_SIZE, "batch": EXPORT_BATCH, "steps": STEPS,
+        "export_s": t1 - t0, "load_s": t2 - t1,
+        "pt2_bytes": os.path.getsize(path),
+        "nlm_gray_nodes": nodes.count("adaptiveisp_tpu_torch.nlm_gray.default"),
+        "graph_nodes": len(nodes), "launches": launches,
+        "program_ms": program_ms, "eager_rollout_ms": eager_ms,
+        "max_abs_err_vs_eager": err,
+        "selected": got[2].flatten().tolist(),
+        "cpu_program_vs_cpu_rollout": err_cpu_prog,
+        "card_vs_cpu_program": err_card_cpu, "selected_equal": sel_equal}
+    ok_roll = (launches == only(nlm_gray_fwd=STEPS)
+               and rollout_rec["nlm_gray_nodes"] == STEPS
+               and all(v <= EXPORT_ATOL for v in err.values())
+               and err_cpu_prog <= 1e-6 and err_card_cpu <= 1e-4
+               and sel_equal and bool(torch.isfinite(got[0]).all()))
+
+    # full YOLOv3: forward + decode
+    det_sd = spread_detector_state(YOLOV3_SPEC, 7)
+    det = api.load_detector(spec=YOLOV3_SPEC, device="cuda",
+                            state_dict=det_sd)
+    t0 = time.perf_counter()
+    dpath = ex.export_detector(det.model, str(root / "yolov3.pt2"),
+                               imgsz=EXPORT_SIZE, spec=YOLOV3_SPEC)
+    t1 = time.perf_counter()
+    dprog = ex.load_program(dpath)
+    x = torch.from_numpy(rng.rand(1, EXPORT_SIZE, EXPORT_SIZE, 3).astype(
+        np.float32))
+    with torch.no_grad():
+        dgot = dprog.module()(x.cuda())
+        dwant = decode_predictions(det.model(x.cuda()), YOLOV3_SPEC)
+        dgot_c = move_to_device_pass(dprog, "cpu").module()(x)
+    det_c = api.load_detector(spec=YOLOV3_SPEC, device="cpu",
+                              state_dict=det_sd)
+    dcpu = det_c.decoded(x)
+    det_err = float((dgot - dwant).abs().max())
+    det_cpu = {"box_px": float((dgot.cpu()[..., :4] - dcpu[..., :4])
+                               .abs().max()),
+               "conf": float((dgot.cpu()[..., 4:] - dcpu[..., 4:])
+                             .abs().max()),
+               "cpu_program_vs_cpu": float((dgot_c - dcpu).abs().max())}
+    det_rec = {"size": EXPORT_SIZE, "export_s": t1 - t0,
+               "pt2_bytes": os.path.getsize(dpath),
+               "candidates": int(dgot.shape[1]),
+               "max_abs_err_vs_eager": det_err, "vs_cpu": det_cpu,
+               "atol_vs_cpu": HUB_ATOL}
+    ok_det = (det_err <= EXPORT_ATOL and det_cpu["box_px"]
+              <= HUB_ATOL["box_px"] and det_cpu["conf"] <= HUB_ATOL["conf"]
+              and det_cpu["cpu_program_vs_cpu"] <= 1e-6)
+
+    # the CLI, as a user runs it
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "adaptiveisp_tpu_torch.export_cli",
+         "--include", "pt2", "variables", "--validate", "--out",
+         str(root / "cli")], capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    cli_s = time.perf_counter() - t0
+    deltas = [float(t.split("=")[1]) for t in cli.stdout.split()
+              if t.startswith("max|d|=")]
+    cli_rec = {"rc": cli.returncode, "seconds": cli_s, "max_abs_d": deltas,
+               "table": cli.stdout.strip().splitlines()[-3:]}
+    ok_cli = (cli.returncode == 0 and len(deltas) == 1
+              and deltas[0] <= EXPORT_ATOL)
+    rec = {"phase": "export", "nvidia_smi": smi, "rollout": rollout_rec,
+           "detector": det_rec, "cli": cli_rec, "atol": EXPORT_ATOL,
+           "ok": ok_roll and ok_det and ok_cli}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"export: {rec} {cli.stderr[-2000:]}")
+    return launches
+
+
+def _kserve_handler(det, name, size):
+    """A KServe-v2 HTTP handler over one detector on the card: metadata,
+    the repository index, and ``infer`` with binary tensors (input
+    ``images`` [1, size, size, 3] FP32, output ``decoded``)."""
+    import http.server
+
+    import torch
+
+    n_out = None
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _send(self, body, ctype="application/json", extra=None):
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            meta = {"name": name, "platform": "pytorch_pt2",
+                    "inputs": [{"name": "images", "datatype": "FP32",
+                                "shape": [1, size, size, 3]}],
+                    "outputs": [{"name": "decoded", "datatype": "FP32",
+                                 "shape": [1, n_out, det.spec["nc"] + 5]}]}
+            self._send(json.dumps(meta).encode())
+
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            if self.path == "/v2/repository/index":
+                self._send(json.dumps([{"name": name}]).encode())
+                return
+            hlen = int(self.headers["Inference-Header-Content-Length"])
+            (inp,) = json.loads(body[:hlen])["inputs"]
+            x = np.frombuffer(body[hlen:hlen + inp["parameters"][
+                "binary_data_size"]], np.float32).reshape(inp["shape"])
+            with torch.no_grad():
+                out = det.decoded(torch.from_numpy(x.copy()).to(det.device))
+            blob = out.cpu().numpy().tobytes()
+            hdr = json.dumps({"outputs": [
+                {"name": "decoded", "datatype": "FP32",
+                 "shape": list(out.shape),
+                 "parameters": {"binary_data_size": len(blob)}}]}).encode()
+            self._send(hdr + blob, "application/octet-stream",
+                       {"Inference-Header-Content-Length": str(len(hdr))})
+
+    with torch.no_grad():
+        n_out = int(det.decoded(torch.zeros(
+            (1, size, size, 3), device=det.device)).shape[1])
+    return Handler
+
+
+def phase_triton():
+    """``serve.triton.TritonRemoteModel`` against an in-script KServe-v2
+    server on a daemon thread, backed by the port's YOLOv3 ``Detector`` on
+    the card (640 px, batch 1): the client's decoded output, a tensor on
+    the card, equal bit for bit to the direct forward; median and p90 ms a
+    request over TRITON_REQUESTS requests (one warm-up first)."""
+    import http.server
+    import threading
+
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.serve.triton import TritonRemoteModel
+
+    det = api.yolov3(device="cuda")
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), _kserve_handler(det, "yolov3", TRITON_SIZE))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        model = TritonRemoteModel(f"http://127.0.0.1:{httpd.server_port}")
+        rng = np.random.RandomState(14)
+        xs = [torch.from_numpy(rng.rand(1, TRITON_SIZE, TRITON_SIZE, 3)
+                               .astype(np.float32)).cuda()
+              for _ in range(TRITON_REQUESTS)]
+        model(xs[0])   # warm-up
+        lat, equal = [], []
+        for x in xs:
+            t0 = time.perf_counter()
+            out = model(x)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            with torch.no_grad():
+                equal.append(bool(torch.equal(out, det.decoded(x))))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    rec = {"phase": "triton", "model": model.model_name,
+           "runtime": model.runtime, "size": TRITON_SIZE,
+           "requests": TRITON_REQUESTS, "output_device": str(out.device),
+           "output_shape": list(out.shape), "bit_equal": equal,
+           "latency_ms": lat, "latency_ms_median": float(np.median(lat)),
+           "latency_ms_p90": float(np.percentile(lat, 90))}
+    emit(rec)
+    if not all(equal) or out.device != xs[0].device:
+        raise AssertionError(f"triton: {rec}")
+
+
+def phase_trace_breakdown(smi):
+    """TRACE_STEPS bf16 train steps (Config(), TrainConfig(batch_size=8),
+    full YOLOv3 reward detector, batch 8 @ 512) under
+    ``obs.profile.trace``, after three untraced warm-up steps; the trace
+    read back by ``obs.trace.trace_op_table`` and bucketed by
+    ``component_breakdown`` into the step's ``record_function`` scopes
+    (each holding forward plus backward): device ms per step, share,
+    GFLOP (the profiler's counts: forward matrix products and
+    convolutions, and the backward's matrix products) and achieved
+    TFLOP/s per component; the step's FLOPs (``obs.roofline.cost_of``, one
+    more step: forward and backward) and its MFU against
+    ``device_peaks``.  Fails when more than TRACE_OTHER_MAX of the device
+    time lands outside every component (the backward's attribution would
+    have failed)."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config, TrainConfig
+    from adaptiveisp_tpu_torch.obs.profile import trace
+    from adaptiveisp_tpu_torch.obs.roofline import (
+        cost_of,
+        device_peaks,
+        utilization,
+    )
+    from adaptiveisp_tpu_torch.obs.trace import (
+        component_breakdown,
+        trace_op_table,
+    )
+
+    cfg, tcfg = Config(), TrainConfig(batch_size=SERVE_BATCH)
+    state, step, batch = _train_setup(cfg, tcfg, SERVE_SIZE, SERVE_BATCH,
+                                      torch.bfloat16, "cuda")
+    gen = torch.Generator(device=batch[0].device)
+    for i in range(3):
+        gen.manual_seed(i)
+        step(state, batch, gen, 0.0)
+    torch.cuda.synchronize()
+    log_dir = _smoke_dir("trace_smoke") / "train_step"
+    t0 = time.perf_counter()
+    with trace(str(log_dir)):
+        for i in range(TRACE_STEPS):
+            gen.manual_seed(3 + i)
+            step(state, batch, gen, 0.0)
+    traced_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = trace_op_table(str(log_dir))
+    parse_s = time.perf_counter() - t0
+    comps = component_breakdown(table)
+    per_step = {k: {**v, "ms": v["ms"] / TRACE_STEPS,
+                    "gflops": v["gflops"] / TRACE_STEPS}
+                for k, v in comps.items()}
+    gen.manual_seed(99)
+    flops = cost_of(lambda: step(state, batch, gen, 0.0))["flops"]
+    torch.cuda.synchronize()
+    device_s = comps["total"]["ms"] / TRACE_STEPS / 1e3
+    peaks = device_peaks()
+    other = comps["other"]["pct"] / 100.0
+    top_other = [{"name": r["name"][:80], "ms": r["duration_ps"] / 1e9,
+                  "count": r["count"]} for r in table if not r["tf_op"]][:8]
+    rec = {"phase": "trace_breakdown", "nvidia_smi": smi,
+           "detector_dtype": "bf16", "batch": SERVE_BATCH,
+           "size": SERVE_SIZE, "steps": TRACE_STEPS, "rows": len(table),
+           "kernels": sum(r["count"] for r in table) / TRACE_STEPS,
+           "components_per_step": per_step,
+           "step_flops": flops, "peaks": peaks and vars(peaks),
+           "utilization": utilization(device_s, flops),
+           "other_share": other, "other_max": TRACE_OTHER_MAX,
+           "top_other": top_other, "traced_s": traced_s,
+           "parse_s": parse_s}
+    emit(rec)
+    if other > TRACE_OTHER_MAX or comps["total"]["ms"] <= 0:
+        raise AssertionError(f"trace_breakdown: {other:.3f} of the device "
+                             f"time outside every component")
+
+
 def main() -> int:
     import torch
 
@@ -3526,6 +3892,9 @@ def main() -> int:
         timed("segment_cli", phase_segment_cli)
         timed("classify_train", phase_classify_train, smi)
         timed("classify_vs_cpu", phase_classify_vs_cpu, hub_weights)
+        export_launches = timed("export", phase_export, smi)
+        timed("triton", phase_triton)
+        timed("trace_breakdown", phase_trace_breakdown, smi)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
@@ -3539,7 +3908,7 @@ def main() -> int:
                   "val_cli": val_cli, "hr_render": hr,
                   "train_isp_val": train_isp_val, "fixed_pipeline": fixed,
                   "fixed_step_fused": fixed_fused, "rest": rest_launches,
-                  "detect_cli": cli_launches}
+                  "detect_cli": cli_launches, "export": export_launches}
 
     def entry(name, counter, source, replaces, cases, err_key, paths,
               ms_key="ms"):
@@ -3571,6 +3940,7 @@ def main() -> int:
               "adaptiveisp_tpu/ops/pallas/nlm.py:123", kern,
               "max_abs_err_out", {"kernel_sym": sym_path}, ms_key="sym_ms")]
     kernels[2]["call_ms"] = kern_pipe["main"]["call_ms"]
+    kernels[0]["op_ms"] = kern["main"]["op_ms"]   # through the operator
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
         print(f"chip_smoke: {unlaunched} launched on no path",

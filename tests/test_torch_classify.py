@@ -347,3 +347,44 @@ def test_dp_exits_naming_p15(which, tmp_path):
     main = cls.main if which == "classify" else seg.train_main
     with pytest.raises(SystemExit, match="P15"):
         main(["--data", str(tmp_path), "--dp", "2"])
+
+
+def test_dropout_follows_the_trainer_seed(data, monkeypatch):
+    """The head's dropout draws from the trainer's generator, seeded from
+    ``seed`` (JAX's dropout key): two runs with dropout 0.5 and one seed
+    give equal weights, another seed other weights; ``classify.main``
+    passes ``--seed`` on."""
+    init = cls.create_classifier(spec=SPEC, nc=NC, dropout=0.5, seed=0,
+                                 device="cpu").state_dict()
+
+    def run(seed):
+        model = cls.create_classifier(spec=SPEC, nc=NC, dropout=0.5,
+                                      device="cpu")
+        model.load_state_dict(init)
+        tr = cls.ClassifierTrainer(
+            model, cls.FolderDataset(data["port"][0], img_size=SIZE,
+                                     augment=True, seed=2),
+            cfg=cls.ClsTrainConfig(epochs=1, batch_size=4, lr0=0.02),
+            device="cpu", seed=seed)
+        tr.fit()
+        return tr.model.state_dict()
+
+    a, b, c = run(5), run(5), run(6)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert any(not torch.equal(a[k], c[k]) for k in a)
+
+    seen = {}
+
+    class Recorder:
+        best_acc = 0.0
+
+        def __init__(self, *args, **kw):
+            seen.update(kw)
+
+        def fit(self):
+            return []
+
+    monkeypatch.setattr(cls, "ClassifierTrainer", Recorder)
+    cls.main(["--data", data["port"][0], "--imgsz", "32", "--device", "cpu",
+              "--dropout", "0.5", "--seed", "7", "--save-dir", ""])
+    assert seen["seed"] == 7

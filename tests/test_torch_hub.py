@@ -371,3 +371,35 @@ def test_feature_visualization_matches_jax(files, tmp_path):
     for g, w in zip(got, want):
         np.testing.assert_allclose(np.load(g[:-4] + ".npy"),
                                    np.load(w[:-4] + ".npy"), atol=1e-4)
+
+
+def test_loaders_take_jax_positional_order():
+    """The loaders start with JAX's parameters in JAX's order, so JAX's
+    positional calls mean the same (``imgsz`` is checked, a torch module
+    needs no shape); the package root re-exports the two hub loaders."""
+    import inspect
+
+    import adaptiveisp_tpu
+    import adaptiveisp_tpu_torch
+
+    for name in ("load_adaptive_isp", "load_value", "load_detector"):
+        want = list(inspect.signature(getattr(japi, name)).parameters)
+        got = list(inspect.signature(getattr(api, name)).parameters)
+        assert got[:len(want)] == want, (name, got, want)
+    isp = api.load_adaptive_isp(None, FAST, 64, 2, 0, device="cpu")
+    assert isp.steps == 2 and isp.cfg is FAST
+    with pytest.raises(ValueError, match="imgsz"):
+        api.load_adaptive_isp(None, FAST, 0, device="cpu")
+    value = api.load_value(FAST, 64, 3, device="cpu")
+    torch.testing.assert_close(
+        value.state_dict(), api.load_value(FAST, seed=3,
+                                           device="cpu").state_dict(),
+        rtol=0, atol=0)
+    for name in ("load_adaptive_isp", "load_detector"):
+        assert name in adaptiveisp_tpu_torch.__all__
+        assert name in adaptiveisp_tpu.__all__
+    root = adaptiveisp_tpu_torch.load_adaptive_isp(None, FAST, 64, 2,
+                                                   device="cpu")
+    assert root.steps == 2
+    det = adaptiveisp_tpu_torch.load_detector(spec=MINI_SPEC, device="cpu")
+    assert isinstance(det, api.Detector)

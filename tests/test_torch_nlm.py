@@ -245,5 +245,90 @@ def test_kernel_matches_plain_version_flat_patches_on_card(cuda_device):
     _check_kernel(cuda_device, rgb, h, gate)
 
 
+def _op_case(seed, n=4, hgt=12, wid=14):
+    """rgb a little outside [0, 1] with exact 0 and 1 pixels, a gated-on
+    image at h = 0, gates with zeros and a partial weight, a cotangent."""
+    rng = np.random.RandomState(seed)
+    rgb = rng.uniform(-0.05, 1.05, (n, hgt, wid, 3)).astype(np.float32)
+    rgb.reshape(-1)[::17] = 0.0
+    rgb.reshape(-1)[5::19] = 1.0
+    h = rng.uniform(0.05, 0.6, (n, 1)).astype(np.float32)
+    h[1] = 0.0
+    gate = np.array([0.0, 1.0, 0.7, 0.0, 1.0, 0.3][:n], np.float32)
+    g = rng.randn(n, hgt, wid, 3).astype(np.float32)
+    return rgb, h, gate, g
+
+
+def _pre_op_dispatch(rgb, h, gate):
+    """The CPU route of ``nlm_gray_dispatch`` before the operator: the
+    plain chain on the gated-on images, differentiated by autograd."""
+    n = rgb.shape[0]
+    idx = (gate.reshape(n) != 0).nonzero()[:, 0]
+    out = torch.zeros_like(rgb)
+    return out.index_copy(0, idx, td.nlm_gray(
+        rgb[idx], h if h.shape[0] == 1 else h[idx]))
+
+
+def test_nlm_gray_op_passes_opcheck():
+    """The registered operator against ``torch.library.opcheck`` on the
+    CPU: schema, autograd registration, fake tensors, and AOT dispatch
+    (forward and backward traced with fake tensors against the real
+    run)."""
+    from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
+
+    rgb, h, gate, _ = _op_case(3, n=3, hgt=8, wid=10)
+    torch.library.opcheck(cnlm.nlm_gray_op, (
+        torch.from_numpy(rgb), torch.from_numpy(h).requires_grad_(True),
+        torch.from_numpy(gate[:, None]), False))
+
+
+@pytest.mark.parametrize("shared_h", [False, True])
+def test_nlm_gray_op_matches_pre_op_plain_path(shared_h):
+    """``nlm_gray_dispatch`` through the operator on the CPU: the output
+    equal to the plain chain's before the operator, and the gradients (rgb,
+    h), now the written-out adjoint's, equal to that chain's autograd up to
+    float32 summation order, gates with zeros; a shared [1, 1] strength sums
+    the images' gradients.  Nothing is launched."""
+    rgb, h, gate, g = _op_case(8)
+    if shared_h:
+        h = h[:1]
+    grads = []
+    before = dict(build.LAUNCHES)
+    for fn in (td.nlm_gray_dispatch, _pre_op_dispatch):
+        x = torch.from_numpy(rgb).requires_grad_(True)
+        ht = torch.from_numpy(h).requires_grad_(True)
+        out = fn(x, ht, torch.from_numpy(gate))
+        out.backward(torch.from_numpy(g))
+        grads.append((out.detach(), x.grad, ht.grad))
+    assert build.LAUNCHES == before
+    (out, dr, dh), (out_p, dr_p, dh_p) = grads
+    torch.testing.assert_close(out, out_p, rtol=0, atol=0)
+    torch.testing.assert_close(dr, dr_p, rtol=0, atol=5e-6)
+    torch.testing.assert_close(dh, dh_p, rtol=1e-5, atol=1e-7)
+    assert not torch.any(out[0]) and not torch.any(dr[3])
+
+
+@pytest.mark.cuda
+def test_nlm_gray_op_launches_k1_and_k2_on_card(cuda_device):
+    """The operator on the card: one K1 forward and one K2 backward, held
+    against the plain chain's autograd (the kernels' tolerances)."""
+    rgb, h, gate, g = _op_case(9, n=4, hgt=37, wid=53)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    x, ht = t(rgb).requires_grad_(True), t(h).requires_grad_(True)
+    before = dict(build.LAUNCHES)
+    out = td.nlm_gray_dispatch(x, ht, t(gate))
+    out.backward(t(g))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nlm_gray_fwd"] == before["nlm_gray_fwd"] + 1
+    assert build.LAUNCHES["nlm_gray_bwd"] == before["nlm_gray_bwd"] + 1
+    xp, hp = t(rgb).requires_grad_(True), t(h).requires_grad_(True)
+    _pre_op_dispatch(xp, hp, t(gate)).backward(t(g))
+    on = t(gate != 0).reshape(-1, 1, 1, 1)
+    want = torch.where(on, td.nlm_gray(t(rgb), t(h)), 0.0)
+    torch.testing.assert_close(out.detach(), want, rtol=0, atol=ATOL)
+    torch.testing.assert_close(x.grad, xp.grad, rtol=0, atol=2e-5)
+    torch.testing.assert_close(ht.grad, hp.grad, rtol=2e-4, atol=1e-5)
+
+
 if __name__ == "__main__":
     _build_reference(sys.argv[1])

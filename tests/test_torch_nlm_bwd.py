@@ -2,9 +2,9 @@
 
 ``nlm_gray_bwd_plain`` (the plain twin of the K2 kernel) is held against the
 Pallas backward ``_nlm_backward`` in interpret mode; the CPU autograd of
-``nlm_gray_dispatch``, and the wiring of ``NLMGray`` (clip and relu tie
-gradients, no gate gradient) with the plain versions standing in for the
-kernels, against ``jax.vjp`` of JAX's dispatch (the XLA chain) at an odd
+``nlm_gray_dispatch``, and the wiring of the registered operator
+``nlm_gray`` (clip and relu tie gradients, no gate gradient) with the plain
+versions standing in for the kernels, against ``jax.vjp`` of JAX's dispatch (the XLA chain) at an odd
 shape.  The ``cuda`` cases hold K2 against the plain twin on the
 card and run without JAX:
 
@@ -25,6 +25,7 @@ Tolerances: dL/drgb atol 2e-5 and dL/dhh rtol 2e-4, atol 1e-5, those of
 (float32 sums over 121 offsets in another order).
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -158,9 +159,11 @@ def test_bwd_plain_matches_pallas_backward_gated(refs):
     assert not torch.any(dr_t[1]) and float(dh_t[1, 0]) == 0.0
 
 
+@contextlib.contextmanager
 def _plain_kernels(monkeypatch):
-    """Stand the plain versions in for K1 and K2 inside ``ops.cuda.nlm``,
-    so ``NLMGray``'s own wiring runs on the CPU."""
+    """Stand the plain versions in for K1 and K2 inside ``ops.cuda.nlm``
+    and send CPU tensors down the registered operators' kernel route (their
+    CPU kernels disabled), so the route's own wiring runs on the CPU."""
     def fwd(rgb, h, gate, sym=False):
         u, w = td.nlm_gray_uw(rgb, h)
         on = (gate != 0).reshape(-1, 1, 1, 1)
@@ -168,6 +171,9 @@ def _plain_kernels(monkeypatch):
 
     monkeypatch.setattr(cnlm, "nlm_gray_fwd", fwd)
     monkeypatch.setattr(cnlm, "nlm_gray_bwd", td.nlm_gray_bwd_plain)
+    with cnlm.nlm_gray_op.set_kernel_enabled("cpu", False), \
+            cnlm.nlm_gray_bwd_op.set_kernel_enabled("cpu", False):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -179,17 +185,18 @@ def xla_ref(refs):
 
 
 def test_nlmgray_wiring_matches_jax_vjp_odd_shape(xla_ref, monkeypatch):
-    """``NLMGray`` (clip(U) forward; backward: clip tie mask on U, K2, relu
-    tie mask on h, no gate gradient) with the plain versions standing in
-    for K1 and K2, against ``jax.vjp`` at an odd shape."""
+    """The kernel route of the registered operator ``nlm_gray`` (clip(U)
+    forward; backward: clip tie mask on U, K2, relu tie mask on h, no gate
+    gradient) with the plain versions standing in for K1 and K2, against
+    ``jax.vjp`` at an odd shape."""
     rgb, h, gate, g, dr_j, dh_j = xla_ref
-    _plain_kernels(monkeypatch)
     x = torch.from_numpy(rgb).requires_grad_(True)
     ht = torch.from_numpy(h).requires_grad_(True)
     gt = torch.from_numpy(gate[:, None]).requires_grad_(True)
-    out = cnlm.NLMGray.apply(x, ht, gt)
-    assert out.grad_fn is not None
-    out.backward(torch.from_numpy(g))
+    with _plain_kernels(monkeypatch):
+        out = cnlm.nlm_gray(x, ht, gt)
+        assert out.grad_fn is not None
+        out.backward(torch.from_numpy(g))
     np.testing.assert_allclose(x.grad.numpy(), dr_j, atol=DRGB_ATOL)
     np.testing.assert_allclose(ht.grad.numpy(), dh_j, rtol=DH_RTOL,
                                atol=DH_ATOL)

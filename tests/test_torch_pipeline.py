@@ -382,9 +382,10 @@ def test_param_rows_read_in_place_or_made_contiguous_float32():
 
 
 def test_nlmgray_sym_forwards_to_k3_and_backward_to_k2(monkeypatch):
-    """``NLMGray`` with ``sym=True``: the forward passes ``sym`` on to
-    ``nlm_gray_fwd`` (which serves JAX's K3 with K1), the backward is K2 as
-    without it (plain versions standing in for the kernels)."""
+    """The registered operator ``nlm_gray`` with ``sym=True``: its kernel
+    route passes ``sym`` on to ``nlm_gray_fwd`` (which serves JAX's K3 with
+    K1), the backward is K2 as without it (plain versions standing in for
+    the kernels, CPU tensors sent down the kernel route)."""
     seen = []
 
     def fwd(rgb, h, gate, sym=False):
@@ -404,12 +405,14 @@ def test_nlmgray_sym_forwards_to_k3_and_backward_to_k2(monkeypatch):
     g = torch.from_numpy(rng.randn(2, 10, 12, 3).astype(np.float32))
     gate = torch.tensor([[1.0], [0.0]])
     grads = []
-    for sym in (False, True):
-        x = torch.from_numpy(rgb).requires_grad_(True)
-        h = torch.tensor([[0.3], [0.5]], requires_grad=True)
-        out = cnlm.NLMGray.apply(x, h, gate, sym)
-        out.backward(g)
-        grads.append((out.detach(), x.grad, h.grad))
+    with cnlm.nlm_gray_op.set_kernel_enabled("cpu", False), \
+            cnlm.nlm_gray_bwd_op.set_kernel_enabled("cpu", False):
+        for sym in (False, True):
+            x = torch.from_numpy(rgb).requires_grad_(True)
+            h = torch.tensor([[0.3], [0.5]], requires_grad=True)
+            out = cnlm.nlm_gray(x, h, gate, sym)
+            out.backward(g)
+            grads.append((out.detach(), x.grad, h.grad))
     assert seen == [("fwd", False), ("bwd", None), ("fwd", True),
                     ("bwd", None)]
     for a, b in zip(*grads):

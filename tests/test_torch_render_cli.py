@@ -133,7 +133,9 @@ def test_port_imports_no_jax():
         "'detect.train_loop', 'obs.callbacks', 'obs.loggers', 'nn_init', "
         "'detect.activations', 'detect.ensemble', 'data.artifacts', "
         "'serve.rest', 'detect_cli', 'raw.bayer', 'raw.unprocess', "
-        "'detect.segment', 'data.segment_dataset', 'classify')}\n"
+        "'detect.segment', 'data.segment_dataset', 'classify', "
+        "'detect.export', 'detect.export_tf', 'export_cli', "
+        "'serve.triton', 'obs.roofline', 'obs.trace')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
