@@ -42,6 +42,7 @@ from adaptiveisp_tpu_torch.detect.train_detector import (
 from adaptiveisp_tpu_torch.nn_init import flax_init_
 from adaptiveisp_tpu_torch.obs.plots import plots_available
 from adaptiveisp_tpu_torch.policy.nets import dropout
+from adaptiveisp_tpu_torch import parallel
 from adaptiveisp_tpu_torch.train.optim import cosine_decay_schedule
 
 HEAD_WIDTH = 1280  # efficientnet_b0's (the reference Classify head)
@@ -214,23 +215,34 @@ class ClsTrainState:
     generator: Optional[torch.Generator] = None   # the head's dropout
 
 
-def make_classifier_train_step(cfg: ClsTrainConfig):
+def make_classifier_train_step(cfg: ClsTrainConfig, mesh=None):
     """``step(state, images, labels) -> (state, {"loss", "acc"})``:
     train-mode forward, the smoothed loss, backward, the optimizer, the
-    EMA; the metrics stay on the device."""
+    EMA; the metrics stay on the device.
+
+    mesh (``parallel.py``): each rank passes its rows; BatchNorm and the
+    head's dropout mask are the global batch's, the gradients of the
+    ranks' mean losses are averaged before the update, and the metrics
+    returned are the global batch's."""
 
     def step(state: ClsTrainState, images, labels):
         model = state.model
         model.train()
-        out = model(images, generator=state.generator)
-        loss = smoothed_cross_entropy(out, labels, cfg.label_smoothing)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        parallel.sync_gradients(state.optimizer, mesh, average=True)
+        with parallel.data_parallel(mesh):
+            out = model(images, generator=state.generator)
+            loss = smoothed_cross_entropy(out, labels, cfg.label_smoothing)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         state.optimizer.step()
         state.ema.update(model)
         state.step += 1
         acc = (out.detach().argmax(-1) == labels).float().mean()
-        return state, {"loss": loss.detach(), "acc": acc}
+        loss = loss.detach()
+        if mesh is not None:
+            loss, acc = parallel.all_reduce(
+                mesh, torch.stack([loss, acc]), "mean")
+        return state, {"loss": loss, "acc": acc}
 
     return step
 
@@ -256,19 +268,20 @@ class ClassifierTrainer:
     early stop; ``results.csv`` per epoch.  ``model`` is moved to
     ``device`` and trained in place; the head's dropout draws from a
     generator on that device seeded from ``seed`` (JAX's dropout key), so
-    two runs with one seed are equal."""
+    two runs with one seed are equal.  ``mesh`` (``parallel.py``): one
+    trainer per rank; rank 0 validates and writes, and every rank follows
+    its metrics."""
 
     def __init__(self, model, train_ds: FolderDataset,
                  val_ds: Optional[FolderDataset] = None,
                  cfg: Optional[ClsTrainConfig] = None,
                  save_dir: Optional[str] = None, mesh=None,
                  device="cuda", seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel classifier training) waits for the "
-                "parallelism queue (ROADMAP P15)")
-        self.device = api.resolve_device(device)
-        self.model = model.to(self.device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.device = (api.resolve_device(device) if mesh is None
+                       else mesh.device)
+        self.model = parallel.replicate(mesh, model.to(self.device))
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.cfg = cfg or ClsTrainConfig()
@@ -280,7 +293,7 @@ class ClassifierTrainer:
             self.model, tx(self.model), ModelEMA(self.model,
                                                  self.cfg.ema_decay),
             generator=torch.Generator(device=self.device).manual_seed(seed))
-        self.step_fn = make_classifier_train_step(self.cfg)
+        self.step_fn = make_classifier_train_step(self.cfg, mesh)
         self._eval_model = copy.deepcopy(self.model).eval()
         self.stopper = EarlyStopping(self.cfg.patience)
         self.best_acc = 0.0
@@ -300,6 +313,9 @@ class ClassifierTrainer:
     def _save(self, name: str):
         if self.save_dir is None:
             return
+        if not self.is_main:   # rank 0 writes; the ranks meet after it
+            parallel.sync_global_devices(self.mesh)
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         cpu = lambda sd: {k: v.detach().cpu()  # noqa: E731
                           for k, v in sd.items()}
@@ -310,6 +326,7 @@ class ClassifierTrainer:
         path = os.path.join(self.save_dir, name)
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
+        parallel.sync_global_devices(self.mesh)
 
     def fit(self, epochs: Optional[int] = None):
         epochs = epochs or self.cfg.epochs
@@ -318,11 +335,18 @@ class ClassifierTrainer:
             losses = []
             for ims, labels in self.train_ds.epoch_batches(
                     self.cfg.batch_size):
-                self.state, out = self.step_fn(
-                    self.state, torch.from_numpy(ims).to(self.device),
-                    torch.from_numpy(labels).long().to(self.device))
+                if self.mesh is not None:
+                    ims, labels = parallel.shard_batch(self.mesh,
+                                                       (ims, labels))
+                else:
+                    ims, labels = (torch.from_numpy(ims).to(self.device),
+                                   torch.from_numpy(labels).to(self.device))
+                self.state, out = self.step_fn(self.state, ims,
+                                               labels.long())
                 losses.append(out["loss"])
-            metrics = self.validate()
+            # rank 0 validates; every rank takes its metrics, so best.pt
+            # and the early stop decide alike on each
+            metrics = parallel.on_main(self.mesh, self.validate)
             if metrics["top1"] >= self.best_acc:
                 self.best_acc = metrics["top1"]
                 self._save("best.pt")
@@ -334,14 +358,15 @@ class ClassifierTrainer:
             self._append_csv(self.history[-1])
             if self.stopper(epoch, metrics["top1"]):
                 break
-        if self.save_dir is not None and self.history and plots_available():
+        if (self.save_dir is not None and self.history and self.is_main
+                and plots_available()):
             from adaptiveisp_tpu_torch.obs.plots import plot_results
 
             plot_results(os.path.join(self.save_dir, "results.csv"))
         return self.history
 
     def _append_csv(self, row: Dict):
-        if self.save_dir is None:
+        if self.save_dir is None or not self.is_main:
             return
         os.makedirs(self.save_dir, exist_ok=True)
         path = os.path.join(self.save_dir, "results.csv")
@@ -450,7 +475,8 @@ def main(argv=None):
                    help="write into --save-dir even if it exists "
                         "(default: auto-increment)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel over N devices (not ported)")
+                   help="data-parallel ranks: 0 off, N ranks (NCCL on N "
+                        "cards, gloo with --device cpu), below 0 every card")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--weights", default=None,
                    help="checkpoint to load before training/validation: "
@@ -459,10 +485,14 @@ def main(argv=None):
                    help="report top-1/top-5 without training")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.dp:
-        raise SystemExit(f"--dp {args.dp}: data-parallel classifier "
-                         f"training is not ported yet (ROADMAP P15); run "
-                         f"with --dp 0 on one device")
+    mesh = None
+    if not args.validate_only:
+        mesh, launched = parallel.cli_mesh(
+            args.dp, args.device, "adaptiveisp_tpu_torch.classify:main",
+            argv)
+        if launched:
+            return None
+    device = args.device if mesh is None else mesh.device
 
     train_root = os.path.join(args.data, "train")
     if not os.path.isdir(train_root):
@@ -475,7 +505,7 @@ def main(argv=None):
 
     model = create_classifier(nc=len(train_ds.classes), cutoff=args.cutoff,
                               dropout=args.dropout, seed=args.seed,
-                              device=args.device)
+                              device=device)
     if args.weights:
         model.load_state_dict(load_classifier_weights(
             args.weights, cutoff=args.cutoff))
@@ -492,11 +522,13 @@ def main(argv=None):
     if args.save_dir:
         from adaptiveisp_tpu_torch.obs.logging import increment_path
 
-        args.save_dir = increment_path(args.save_dir,
-                                       exist_ok=args.exist_ok)
+        if mesh is None or mesh.is_main:
+            args.save_dir = increment_path(args.save_dir,
+                                           exist_ok=args.exist_ok)
+        args.save_dir = parallel.broadcast_object(mesh, args.save_dir)
     trainer = ClassifierTrainer(model, train_ds, val_ds, cfg=cfg,
-                                save_dir=args.save_dir, device=args.device,
-                                seed=args.seed)
+                                save_dir=args.save_dir, device=device,
+                                seed=args.seed, mesh=mesh)
     history = trainer.fit()
     for h in history:
         print(f"epoch {h['epoch']}: loss {h['loss']:.4f} "

@@ -10,10 +10,10 @@ One dataset class with a ``source`` option:
 and ``high_res``, which adds ``im_hr``: the max-side-capped frame before the
 letterbox, for rendering at full resolution.  ``split`` cuts one file list
 into train and validation views.  ``cache_images`` ("ram" or "disk") keeps
-the decoded, resized images (:mod:`.image_cache`).  The feeder's
-data-parallel sharding is not ported.
+the decoded, resized images (:mod:`.image_cache`).
 :class:`BatchFeeder` walks the dataset in shuffled epochs behind a
-:class:`~adaptiveisp_tpu_torch.data.prefetch.Prefetcher` thread.
+:class:`~adaptiveisp_tpu_torch.data.prefetch.Prefetcher` thread, or a
+per-host strided slice of them (``shard_rank`` / ``shard_count``).
 
 Images load via PIL; pixels leave as NHWC float32 in [0, 1].  The random
 draws (the dataset's ``rng``, the feeder's ``RandomState(seed)``) are the
@@ -237,9 +237,16 @@ class BatchFeeder:
     prefetch thread (util.py:153-201 equivalent)."""
 
     def __init__(self, dataset: ISPDataset, batch_size: int = 64,
-                 seed: int = 0):
+                 seed: int = 0, shard_rank: int = 0, shard_count: int = 1):
+        """shard_rank / shard_count: per-host sharding (DistributedSampler's
+        role): each host reads a disjoint strided slice of the epoch order,
+        shuffled with the same seed on every host.  API parity with the
+        JAX package: no trainer of the port passes them (a data-parallel
+        trainer reads the global batch and keeps its rows)."""
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard_rank = shard_rank
+        self.shard_count = shard_count
         self.rng = np.random.RandomState(seed)
         self._order = self._new_order()
         self._cursor = 0
@@ -248,6 +255,11 @@ class BatchFeeder:
     def _new_order(self):
         order = np.arange(len(self.dataset))
         self.rng.shuffle(order)
+        if self.shard_count > 1:
+            # the ragged tail goes first, so every host's slice has one
+            # length and the hosts start the next permutation together
+            usable = (len(order) // self.shard_count) * self.shard_count
+            order = order[:usable][self.shard_rank::self.shard_count]
         return order
 
     def _next_indices(self, n):

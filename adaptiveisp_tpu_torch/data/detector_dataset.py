@@ -242,15 +242,24 @@ class DetectorDataset:
                       shard_rank: int = 0, shard_count: int = 1):
         """Yield full batches for one epoch (drops the ragged tail).
 
-        shard_rank/shard_count (per-host data sharding) are the JAX
-        package's data-parallel arguments; only (0, 1) is ported."""
-        if (shard_rank, shard_count) != (0, 1):
-            raise NotImplementedError(
-                "sharded epochs (shard_rank/shard_count) wait for the "
-                "parallelism queue (ROADMAP P15)")
+        shard_rank / shard_count: per-host sharding (DistributedSampler's
+        role): each host reads a disjoint strided slice of the epoch order,
+        shuffled alike on every host.  API parity with the JAX package:
+        no trainer of the port passes them (a data-parallel trainer reads
+        the global batch and keeps its rows)."""
         order = self.indices.copy()
         if shuffle and not self.rect:
             self.rng.shuffle(order)
         bs = self.batch_size
+        if shard_count > 1 and self.rect:
+            # a rect batch letterboxes to its bucket's shape, so it needs
+            # consecutive indices: whole batches go round robin instead
+            for k in range(len(order) // bs):
+                if k % shard_count == shard_rank:
+                    yield self.collate(order[k * bs:(k + 1) * bs],
+                                       t_max=t_max)
+            return
+        if shard_count > 1:
+            order = order[shard_rank::shard_count]
         for k in range(len(order) // bs):
             yield self.collate(order[k * bs:(k + 1) * bs], t_max=t_max)

@@ -149,12 +149,16 @@ class SegmentDataset:
                 masks[bi, :k] = m[:k]
         return images, targets, tmask, masks
 
-    def epoch_batches(self, shuffle: bool = True, t_max: int = 32):
-        """Full batches of one epoch, shuffled by the dataset's stream.
-        Per-host sharding comes with the parallelism queue (ROADMAP P15)."""
+    def epoch_batches(self, shuffle: bool = True, t_max: int = 32,
+                      shard_rank: int = 0, shard_count: int = 1):
+        """Full batches of one epoch, shuffled by the dataset's stream;
+        shard_rank / shard_count as ``DetectorDataset.epoch_batches`` (one
+        shuffle on every host, disjoint strided slices)."""
         order = np.arange(len(self))
         if shuffle:
             self.rng.shuffle(order)
+        if shard_count > 1:
+            order = order[shard_rank::shard_count]
         bs = self.batch_size
         for s in range(0, len(order) - bs + 1, bs):
             yield self.collate(order[s:s + bs], t_max=t_max)

@@ -186,26 +186,41 @@ def per_image_loss_batch(preds: Sequence[torch.Tensor], targets, tmask,
 
 
 def batch_loss(preds: Sequence[torch.Tensor], targets, tmask,
-               anchors_grid: Sequence, hyp: LossHyp):
+               anchors_grid: Sequence, hyp: LossHyp, mesh=None):
     """ComputeLoss semantics over a batch: each level's box and class terms
     are averaged over the batch's matched candidates, objectness over the
     batch's cells, with the level balance (``BALANCE_3`` / ``BALANCE_5``).
 
     preds: per-level [N, ny, nx, na, no]; targets [N, T, 5]; tmask [N, T].
-    Returns ((lbox + lobj + lcls) * N, components [3] detached)."""
+    Returns ((lbox + lobj + lcls) * N, components [3] detached).
+
+    mesh (a data mesh of more than one rank, each holding its rows of the
+    batch): the rank's term of the global batch's loss.  The matched
+    counts and N are the global batch's (one all-reduce of the counts), so
+    the ranks' terms and their gradients sum to the single-device loss and
+    gradient on the global batch."""
     balance = BALANCE_3 if len(preds) == 3 else BALANCE_5
     bs = preds[0].shape[0]
     tmask = tmask.to(torch.bool)
+    terms = [_level_terms(pred, targets, tmask, anchors_grid[i], hyp)
+             for i, pred in enumerate(preds)]
+    counts = torch.stack([t[1].sum() for t in terms]
+                         + [t[4].sum() for t in terms])
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        from adaptiveisp_tpu_torch.parallel import all_reduce
+
+        counts = all_reduce(mesh, counts)
+        bs = bs * mesh.size
+    nl = len(preds)
     lbox = lobj = lcls = 0.0
-    for i, pred in enumerate(preds):
-        box_sums, ns, obj_means, cls_sums, n_cls = _level_terms(
-            pred, targets, tmask, anchors_grid[i], hyp)
-        n_tot = ns.sum()
+    for i, (box_sums, _, obj_means, cls_sums, _) in enumerate(terms):
+        n_tot, n_cls = counts[i], counts[nl + i]
         has = (n_tot > 0).to(torch.float32)
         lbox = lbox + has * box_sums.sum() / torch.clamp(n_tot, min=1.0)
-        lcls = lcls + has * cls_sums.sum() / torch.clamp(n_cls.sum(),
-                                                         min=1.0)
-        lobj = lobj + obj_means.mean() * balance[i]
+        lcls = lcls + has * cls_sums.sum() / torch.clamp(n_cls, min=1.0)
+        obj = obj_means.sum() / bs if sharded else obj_means.mean()
+        lobj = lobj + obj * balance[i]
     lbox, lobj, lcls = lbox * hyp.box, lobj * hyp.obj, lcls * hyp.cls
     comps = torch.stack([lbox, lobj, lcls]).detach()
     return (lbox + lobj + lcls) * bs, comps

@@ -43,6 +43,7 @@ from adaptiveisp_tpu_torch.detect.model import (
 )
 from adaptiveisp_tpu_torch.detect.nms import non_max_suppression
 from adaptiveisp_tpu_torch.detect.train_loop import DetectorTrainer
+from adaptiveisp_tpu_torch import parallel
 
 IOUV = np.linspace(0.5, 0.95, 10)
 
@@ -349,23 +350,35 @@ def seg_spec_from(spec: Dict[str, Any], nm: int = 32,
     return out
 
 
-def make_segment_train_step(anchors_grid: Sequence, hyp):
+def make_segment_train_step(anchors_grid: Sequence, hyp, mesh=None):
     """``step(state, images, targets, tmask, gt_masks) -> (state, {"loss",
-    "components"})``: the detector's step with :func:`batch_seg_loss`."""
+    "components"})``: the detector's step with :func:`batch_seg_loss`.
+
+    mesh: as ``make_detector_train_step``'s.  The loss is the sum of the
+    per-image losses, so a rank's term is the sum over its rows; the
+    gradients are summed over the ranks and the loss and components
+    returned are the global batch's."""
 
     def step(state, images, targets, tmask, gt_masks):
         model = state.model
         model.train()
-        preds, proto = model(images)
-        total, comps = batch_seg_loss(preds, proto, targets, tmask, gt_masks,
-                                      anchors_grid, hyp)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        parallel.sync_gradients(state.optimizer, mesh, average=False)
+        with parallel.data_parallel(mesh):
+            preds, proto = model(images)
+            total, comps = batch_seg_loss(preds, proto, targets, tmask,
+                                          gt_masks, anchors_grid, hyp)
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
         state.optimizer.step()
         state.ema.update(model)
         state.step += 1
-        return state, {"loss": total.detach(),
-                       "components": {k: v.detach() for k, v in comps.items()}}
+        total = total.detach()
+        comps = {k: v.detach() for k, v in comps.items()}
+        if mesh is not None:
+            total = parallel.all_reduce(mesh, total)
+            comps = {k: parallel.all_reduce(mesh, v, "mean")
+                     for k, v in comps.items()}
+        return state, {"loss": total, "components": comps}
 
     return step
 
@@ -449,7 +462,7 @@ class SegmentTrainer(DetectorTrainer):
 
     def _build_step(self):
         return make_segment_train_step(anchors_in_grid_units(self.spec),
-                                       self.hyp)
+                                       self.hyp, mesh=self.mesh)
 
     def _plot_train_batch(self, bi, images, targets, tmask, *extra):
         """train_batch mosaics with the instance masks blended in."""
@@ -647,7 +660,8 @@ def train_main(argv=None):
                         "(default: auto-increment)")
     p.add_argument("--plots", action="store_true")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel over N devices (not ported)")
+                   help="data-parallel ranks: 0 off, N ranks (NCCL on N "
+                        "cards, gloo with --device cpu), below 0 every card")
     p.add_argument("--optimizer", default="SGD",
                    choices=["SGD", "Adam", "AdamW"])
     p.add_argument("--linear-lr", action="store_true",
@@ -662,12 +676,15 @@ def train_main(argv=None):
                    help="box+mask mAP over --data, no training")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.dp:
-        raise SystemExit(f"--dp {args.dp}: parallel segmentation training "
-                         f"is not ported yet (ROADMAP P15); run with --dp 0 "
-                         f"on one device")
+    mesh = None
+    if not args.validate_only:
+        mesh, launched = parallel.cli_mesh(
+            args.dp, args.device,
+            "adaptiveisp_tpu_torch.detect.segment:train_main", argv)
+        if launched:
+            return None
 
-    dev = api.resolve_device(args.device)
+    dev = api.resolve_device(args.device) if mesh is None else mesh.device
     base = resolve_spec(args.spec)
     if args.nc is not None:
         base = dict(base, nc=args.nc)
@@ -718,12 +735,15 @@ def train_main(argv=None):
     if args.save_dir and not args.resume:
         from adaptiveisp_tpu_torch.obs.logging import increment_path
 
-        args.save_dir = increment_path(args.save_dir,
-                                       exist_ok=args.exist_ok)
+        if mesh is None or mesh.is_main:
+            args.save_dir = increment_path(args.save_dir,
+                                           exist_ok=args.exist_ok)
+        args.save_dir = parallel.broadcast_object(mesh, args.save_dir)
     trainer = SegmentTrainer(model, spec, train_ds, val_ds, cfg=cfg,
                              hyp=loss_hyp, save_dir=args.save_dir,
-                             nm=args.nm, plots=args.plots, device=dev)
-    if args.save_dir:
+                             nm=args.nm, plots=args.plots, device=dev,
+                             mesh=mesh)
+    if args.save_dir and (mesh is None or mesh.is_main):
         os.makedirs(args.save_dir, exist_ok=True)
         with open(os.path.join(args.save_dir, "opt.yaml"), "w") as f:
             yaml.safe_dump(vars(args), f, sort_keys=False)

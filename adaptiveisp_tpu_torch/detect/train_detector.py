@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from adaptiveisp_tpu_torch.detect.loss import LossHyp, batch_loss
+from adaptiveisp_tpu_torch import parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,25 +279,38 @@ class DetTrainState:
     step: int = 0
 
 
-def make_detector_train_step(anchors_grid: Sequence, hyp: LossHyp
-                             ) -> Callable:
+def make_detector_train_step(anchors_grid: Sequence, hyp: LossHyp,
+                             mesh=None) -> Callable:
     """``step(state, images, targets, tmask) -> (state, {"loss",
     "components"})``: train-mode forward (BatchNorm on batch statistics,
     running statistics updated), ``batch_loss``, backward, the optimizer's
     update, the EMA.  The state moves in place; the loss stays on the
-    device."""
+    device.
+
+    mesh (``parallel.py``): each rank passes its rows of the batch; the
+    step takes the global batch's BatchNorm statistics and loss divisors,
+    sums the ranks' gradients before the update (the ranks' losses sum to
+    the global one) and returns the global loss and components, so every
+    rank's model, optimizer and EMA stay equal to the single-device
+    step's on the global batch."""
 
     def step(state: DetTrainState, images, targets, tmask):
         model = state.model
         model.train()
-        total, comps = batch_loss(model(images), targets, tmask,
-                                  anchors_grid, hyp)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        parallel.sync_gradients(state.optimizer, mesh, average=False)
+        with parallel.data_parallel(mesh):
+            total, comps = batch_loss(model(images), targets, tmask,
+                                      anchors_grid, hyp, mesh=mesh)
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
         state.optimizer.step()
         state.ema.update(model)
         state.step += 1
-        return state, {"loss": total.detach(), "components": comps}
+        total = total.detach()
+        if mesh is not None:
+            total, comps = (parallel.all_reduce(mesh, total),
+                            parallel.all_reduce(mesh, comps))
+        return state, {"loss": total, "components": comps}
 
     return step
 

@@ -53,6 +53,7 @@ from adaptiveisp_tpu_torch.detect.train_detector import (
     param_groups,
 )
 from adaptiveisp_tpu_torch.obs.plots import plots_available
+from adaptiveisp_tpu_torch import parallel
 
 IOUV = np.linspace(0.5, 0.95, 10)
 
@@ -190,8 +191,14 @@ class DetectorTrainer:
     """Runs epochs end to end; the reference yolov3/train.py loop.
 
     ``model`` is a ``DetectionModel`` holding the initial weights; it is
-    moved to ``device`` and trained in place.  ``mesh`` (data or tensor
-    parallelism) is not ported.
+    moved to ``device`` and trained in place.  ``mesh``: a data mesh
+    (``parallel.py``), one trainer per rank on ``mesh.device``: every
+    rank reads the same epochs and keeps its rows of each batch; the step
+    has the global batch's BatchNorm statistics, loss divisors and summed
+    gradients, so every rank holds the single-device run's model; rank 0
+    alone validates (every rank follows its fitness) and writes
+    checkpoints, logs and plots.  A mesh with a ``model``
+    axis (tensor parallelism) raises.
 
     Subclass hooks (the segmentation trainer's): ``_build_step`` supplies
     the step, ``_validate`` the per-epoch metrics and fitness,
@@ -212,12 +219,16 @@ class DetectorTrainer:
                  noval: bool = False, nosave: bool = False,
                  save_period: int = -1, image_weights: bool = False,
                  callbacks=None, loggers: bool = True, device="cuda"):
-        if mesh is not None:
+        if mesh is not None and "model" in getattr(mesh, "axis_names", ()):
             raise NotImplementedError(
-                "mesh= (data / tensor parallel detector training) waits "
-                "for the parallelism queue (ROADMAP P15)")
-        self.device = api.resolve_device(device)
-        self.model = model.to(self.device)
+                "a mesh with a 'model' axis (tensor-parallel detector "
+                "training) comes with the next parallelism slice (ROADMAP "
+                "P15: sp, ep, pp, tp)")
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.device = (api.resolve_device(device) if mesh is None
+                       else mesh.device)
+        self.model = parallel.replicate(mesh, model.to(self.device))
         self.spec = spec
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -227,7 +238,7 @@ class DetectorTrainer:
         self.hyp = hyp or LossHyp(obj=1.0 * (imgsz / 640) ** 2)
         self.save_dir = save_dir
         self.val_batches = val_batches
-        self.plots = plots and save_dir is not None
+        self.plots = plots and save_dir is not None and self.is_main
         self.names = names
         self.noval = noval            # only validate the final epoch
         self.nosave = nosave          # only save the final checkpoint
@@ -258,7 +269,7 @@ class DetectorTrainer:
         from adaptiveisp_tpu_torch.obs.callbacks import Callbacks
 
         self.callbacks = callbacks if callbacks is not None else Callbacks()
-        if loggers and save_dir is not None:
+        if loggers and save_dir is not None and self.is_main:
             from adaptiveisp_tpu_torch.obs.loggers import Loggers
 
             Loggers(save_dir, self.callbacks, config=self.cfg)
@@ -277,7 +288,7 @@ class DetectorTrainer:
     # ------------------------------------------------------------------ #
     def _build_step(self):
         return make_detector_train_step(anchors_in_grid_units(self.spec),
-                                        self.hyp)
+                                        self.hyp, mesh=self.mesh)
 
     def _validate(self):
         metrics = {"precision": 0.0, "recall": 0.0, "map50": 0.0,
@@ -339,8 +350,11 @@ class DetectorTrainer:
             if self.plots and epoch == 0 and bi < 3:
                 os.makedirs(self.save_dir, exist_ok=True)
                 self._plot_train_batch(bi, images, *rest)
-            x, *rest = (torch.from_numpy(a).to(self.device)
-                        for a in (images, *rest))
+            if self.mesh is not None:
+                x, *rest = parallel.shard_batch(self.mesh, (images, *rest))
+            else:
+                x, *rest = (torch.from_numpy(a).to(self.device)
+                            for a in (images, *rest))
             self.state, out = self.step_fn(self.state, self._maybe_rescale(x),
                                            *rest)
             losses.append(out["loss"])
@@ -350,6 +364,9 @@ class DetectorTrainer:
 
     def _save(self, name: str, epoch: int, fit: float):
         if self.save_dir is None:
+            return
+        if not self.is_main:   # rank 0 writes; the ranks meet after it
+            parallel.sync_global_devices(self.mesh)
             return
         os.makedirs(self.save_dir, exist_ok=True)
         cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}
@@ -375,6 +392,7 @@ class DetectorTrainer:
         path = os.path.join(self.save_dir, name)
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
+        parallel.sync_global_devices(self.mesh)
 
     def resume(self, path: str) -> int:
         """Restore model, optimizer, EMA, step, best fitness and the data
@@ -430,7 +448,9 @@ class DetectorTrainer:
             final = epoch == epochs - 1
             validated = not (self.noval and not final)
             if validated:
-                metrics, fit = self._validate()
+                # rank 0 validates; every rank takes its metrics, so the
+                # saves and the early stop below decide alike on each
+                metrics, fit = parallel.on_main(self.mesh, self._validate)
                 for c, ap in metrics.get("class_ap", {}).items():
                     if 0 <= c < len(self.maps):
                         self.maps[c] = ap
@@ -499,7 +519,7 @@ class DetectorTrainer:
 
     def _append_csv(self, log: EpochLog):
         """Per-epoch results.csv."""
-        if self.save_dir is None:
+        if self.save_dir is None or not self.is_main:
             return
         os.makedirs(self.save_dir, exist_ok=True)
         path = os.path.join(self.save_dir, "results.csv")
@@ -610,18 +630,25 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="train-batch mosaics, label plots, results curves, "
                         "confusion matrix (curves need matplotlib)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel over N devices (not ported)")
+                   help="data-parallel ranks: 0 off, N ranks (NCCL on N "
+                        "cards, gloo with --device cpu), below 0 every card")
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel over N devices (not ported)")
+                   help="tensor-parallel over N devices (the next "
+                        "parallelism slice)")
     p.add_argument("--resume", default=None,
                    help="last.pt checkpoint to continue from (restores "
                         "optimizer / EMA / epoch / data streams)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.dp or args.tp:
-        raise SystemExit(f"--dp {args.dp} --tp {args.tp}: parallel detector "
-                         f"training is not ported yet (ROADMAP P15); run "
-                         f"with --dp 0 --tp 0 on one device")
+    if args.tp:
+        raise SystemExit(f"--tp {args.tp}: tensor-parallel detector training "
+                         f"comes with the next parallelism slice (ROADMAP "
+                         f"P15: sp, ep, pp, tp); --dp N runs data parallel")
+    mesh, launched = parallel.cli_mesh(
+        args.dp, args.device, "adaptiveisp_tpu_torch.detect.train_loop:main",
+        argv)
+    if launched:
+        return None
 
     import yaml
 
@@ -632,7 +659,7 @@ def main(argv: Optional[Sequence[str]] = None):
     )
     from adaptiveisp_tpu_torch.detect.spec import resolve_spec
 
-    dev = api.resolve_device(args.device)
+    dev = api.resolve_device(args.device) if mesh is None else mesh.device
     spec = resolve_spec(args.spec)
     if args.nc is not None and args.nc != spec["nc"]:
         spec = dict(spec, nc=args.nc)
@@ -657,6 +684,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
         args.batch_size = autobatch_detector(
             new_model(spec), spec, imgsz=args.imgsz, device=dev)
+        # every rank trains on rank 0's choice (the global batch)
+        args.batch_size = parallel.broadcast_object(mesh, args.batch_size)
 
     val_ds = None
     if args.val_data:
@@ -720,7 +749,7 @@ def main(argv: Optional[Sequence[str]] = None):
                                nosave=args.nosave,
                                save_period=args.save_period,
                                image_weights=args.image_weights,
-                               device=dev)
+                               device=dev, mesh=mesh)
 
     if args.evolve:
         def build_and_fit(hyp_d):
@@ -739,10 +768,12 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.save_dir and not args.resume:
         from adaptiveisp_tpu_torch.obs.logging import increment_path
 
-        args.save_dir = increment_path(args.save_dir,
-                                       exist_ok=args.exist_ok)
+        if mesh is None or mesh.is_main:
+            args.save_dir = increment_path(args.save_dir,
+                                           exist_ok=args.exist_ok)
+        args.save_dir = parallel.broadcast_object(mesh, args.save_dir)
     trainer = build_trainer(hyp_dict, args.save_dir)
-    if args.save_dir:
+    if args.save_dir and (mesh is None or mesh.is_main):
         # run provenance: opt.yaml + hyp.yaml next to the checkpoints
         os.makedirs(args.save_dir, exist_ok=True)
         with open(os.path.join(args.save_dir, "opt.yaml"), "w") as f:

@@ -40,11 +40,12 @@ def run_hr_validation(cfg, tcfg, data, model_weights: Optional[str],
     (:func:`..train.checkpoint.load_agent_weights`), or None for seeded
     random weights.  The JAX function's ``yolo_variables``, unused there,
     is dropped.  spatial_shard > 1 (a frame's rows over several devices)
-    is not ported.
+    comes with the next parallelism slice.
     """
     if spatial_shard > 1:
         raise SystemExit(f"spatial_shard={spatial_shard}: spreading a frame "
-                         f"over devices is not ported yet (ROADMAP P15)")
+                         f"over devices comes with the next parallelism "
+                         f"slice (ROADMAP P15: sp, ep, pp, tp)")
     image_dir = os.path.join(save_dir, "val-images")
     for i in range(steps):
         os.makedirs(os.path.join(image_dir, f"step-{i}"), exist_ok=True)

@@ -47,6 +47,7 @@ from adaptiveisp_tpu_torch.obs.logging import save_img
 from adaptiveisp_tpu_torch.obs.profile import Profile, speed_report
 from adaptiveisp_tpu_torch.ops.bank import filter_specs, param_offsets
 from adaptiveisp_tpu_torch.policy.states import get_initial_states, get_noise
+from adaptiveisp_tpu_torch.parallel import all_gather, data_sharding
 
 
 def _to_host(tensors, dev):
@@ -92,10 +93,19 @@ def run_validation(cfg, agent, yolo, dataset: ISPDataset, steps: int = 5,
     detector ("inference") and NMS ("nms") apart, waiting for the card at
     each bucket's edges; otherwise "inference" holds all three and no
     bucket waits.
+
+    mesh (a data mesh from ``parallel.make_mesh``, one call per rank):
+    each rank runs its rows of every batch that divides over the ranks (a
+    batch that does not runs whole on every rank, as in the JAX package);
+    the detections, selections and recorded outputs are gathered, so
+    every rank computes the single-device run's ``records`` and mAP.  Rank
+    0 alone writes under ``save_dir``.
     """
-    if mesh is not None:
-        raise NotImplementedError("data-parallel evaluation (mesh=) is not "
-                                  "ported yet: ROADMAP P15")
+    if mesh is not None and not hasattr(mesh, "rank"):
+        raise TypeError("mesh= takes a data mesh from "
+                        "parallel.make_mesh")
+    if mesh is not None and not mesh.is_main:
+        save_dir = None
     if render == "auto":
         render = ("switch" if batch_size == 1 or pipeline is not None
                   else "blend")
@@ -193,6 +203,14 @@ def run_validation(cfg, agent, yolo, dataset: ISPDataset, steps: int = 5,
         """Upload and queue one batch's device work; no host read but the
         rollout's and NMS's own."""
         batch, tensors = prepped
+        nb = tensors[0].shape[0]
+        sharded = (mesh is not None and mesh.size > 1
+                   and nb % mesh.size == 0)
+        if sharded:
+            # the rank's rows (the noise is [steps, batch, z])
+            rows = data_sharding(mesh, nb)
+            tensors = [t[:, rows] if i == 1 else t[rows]
+                       for i, t in enumerate(tensors)]
         with profiles["pre"]:
             im, noises, states, *hyb = [t.to(dev, non_blocking=True)
                                         for t in tensors]
@@ -213,6 +231,11 @@ def run_validation(cfg, agent, yolo, dataset: ISPDataset, steps: int = 5,
             fetch.append(res.images_per_step)
         if save_param:
             fetch.append(res.params)
+        if sharded:
+            # batch-major gathers; the per-step outputs are [steps, batch]
+            fetch = [all_gather(mesh, t) if i < 2 else
+                     all_gather(mesh, t.transpose(0, 1).contiguous())
+                     .transpose(0, 1) for i, t in enumerate(fetch)]
         return batch, im.shape[1:3], _to_host(fetch, dev)
 
     def consume(work):

@@ -12,6 +12,11 @@ Train mode follows flax, not torch: BatchNorm normalises with the batch
 mean and biased variance and moves its running statistics by
 ``0.9 * old + 0.1 * batch`` with the biased variance; dropout draws its mask
 from a ``torch.Generator`` the caller passes (flax's ``dropout`` rng).
+Inside ``parallel.data_parallel`` both are the global batch's: BatchNorm
+takes the mean and variance of every rank's rows (one differentiable
+all-reduce a layer) and dropout draws the global batch's mask and keeps
+the rank's rows, so a rank computes what the single-device step computes
+on its rows.
 
 Channel schedule for a 64x64 input with mid_channels=32, output_dim=4096:
 64 -> 32 (32ch) -> 16 (64ch) -> 8 (128ch) -> 4 (256ch), 4*4*256 = 4096.
@@ -23,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from adaptiveisp_tpu_torch import parallel
+
 MIN_FEATURE_MAP_SIZE = 4
 LEAKY_SLOPE = 0.2
 BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch
@@ -31,7 +38,8 @@ BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same state-dict keys, same eval mode) whose train
     mode is flax ``BatchNorm(momentum=0.9)``'s: the biased batch variance
-    both normalises and enters the running variance."""
+    both normalises and enters the running variance; under a data mesh the
+    statistics are the global batch's, as flax's under ``pmean``."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1.0 - BN_MOMENTUM)
@@ -39,7 +47,12 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        mesh = parallel.active()
+        if mesh is None:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        else:
+            mean, var = parallel.global_moments(mesh, x, (0, 2, 3))
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(
                 mean * (1.0 - BN_MOMENTUM))
@@ -54,12 +67,17 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 def dropout(x, rate: float, generator: torch.Generator | None):
     """flax ``nn.Dropout`` in train mode: keep with probability 1 - rate,
     scale kept values by 1 / (1 - rate); the mask comes from ``generator``
-    (on x's device)."""
+    (on x's device), at the global batch under a data mesh."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    mesh = parallel.active()
+    if mesh is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - rate,
+                                              generator=generator)
+    else:
+        keep = parallel.global_rows_mask(mesh, x, 1.0 - rate, generator)
     return torch.where(keep != 0, x / (1.0 - rate), 0.0)
 
 

@@ -14,6 +14,13 @@ The device pool (:mod:`..data.replay_device`) keeps the images on the
 device: per iteration one host fetch brings the scalar metrics and the new
 states; the retouched images stay where they are.  The host pool
 (:mod:`..data.replay`) is the reference's data flow.
+
+Over a data mesh (``mesh=``, :mod:`.mesh`) every rank runs this loop with
+the same seeds: the same pool decisions and feeds, its own rows of each
+batch, the step of :func:`.mesh.shard_train_step` (global BatchNorm,
+dropout and metrics; gradients averaged before the clip), the device pool
+sharded by slot.  Rank 0 alone prints, logs, dumps validation
+trajectories and writes checkpoints, the others waiting at a barrier.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from adaptiveisp_tpu_torch.obs.logging import MetricWriter, save_img
 from adaptiveisp_tpu_torch.ops.bank import filter_specs
 from adaptiveisp_tpu_torch.policy.states import get_initial_states
 from adaptiveisp_tpu_torch.train import checkpoint as ckpt_lib
+from adaptiveisp_tpu_torch.train import mesh as mesh_lib
 from adaptiveisp_tpu_torch.train.optim import make_optimizer
 from adaptiveisp_tpu_torch.train.step import (
     init_train_state,
@@ -81,7 +89,9 @@ class Trainer:
 
     Networks start from seeded random weights (agent ``tcfg.seed``, critic
     ``+1``, detector ``+2``) unless a ``state_dict`` is given (e.g. from
-    ``convert.*_from_flax``).  Runs on ``device``, ``cuda`` by default.
+    ``convert.*_from_flax``).  Runs on ``device``, ``cuda`` by default,
+    or on ``mesh.device`` for one rank of a data mesh (``mesh=``, from
+    :func:`.mesh.make_mesh`; rank 0's weights are broadcast).
     """
 
     def __init__(self, cfg: Config, tcfg: TrainConfig,
@@ -93,7 +103,7 @@ class Trainer:
                  device_replay: bool = False, cached_reward: bool = True,
                  loss_hyp: Optional[LossHyp] = None, device="cuda",
                  agent_state_dict: Optional[Mapping] = None,
-                 value_state_dict: Optional[Mapping] = None):
+                 value_state_dict: Optional[Mapping] = None, mesh=None):
         cfg = cfg.replace(
             filter_runtime_penalty=tcfg.runtime_penalty,
             filter_runtime_penalty_lambda=tcfg.runtime_penalty_lambda)
@@ -101,7 +111,10 @@ class Trainer:
         self.tcfg = tcfg
         self.t_max = t_max
         self.save_dir = save_dir
-        self.device = api.resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.device = (api.resolve_device(device) if mesh is None
+                       else mesh.device)
 
         os.makedirs(save_dir, exist_ok=True)
         self.log_dir = os.path.join(save_dir, "logs")
@@ -109,7 +122,8 @@ class Trainer:
         self.image_dir = os.path.join(save_dir, "images")
         for d in (self.log_dir, self.ckpt_dir, self.image_dir):
             os.makedirs(d, exist_ok=True)
-        self.writer = MetricWriter(self.log_dir) if log else None
+        self.writer = (MetricWriter(self.log_dir) if log and self.is_main
+                       else None)
 
         source = data_source or (
             "raw" if tcfg.data_name == "coco" else
@@ -171,9 +185,13 @@ class Trainer:
             clip_norm=tcfg.grad_clip_norm, lr_decay=tcfg.lr_decay,
             segments=tcfg.lr_segments)
         anchors = anchors_in_grid_units(spec)
+        for net in (self.agent, self.value, self.yolo):
+            mesh_lib.replicate(mesh, net)
         self.train_step = make_train_step(
             self.yolo, cfg, tcfg, anchors, hyp,
             cached_input_loss=self.cached_reward)
+        if mesh is not None:
+            self.train_step = mesh_lib.shard_train_step(self.train_step, mesh)
         self.state = init_train_state(self.agent, self.value, agent_tx,
                                       value_tx)
         self.filter_names = [s.short_name for s in filter_specs(cfg)]
@@ -203,7 +221,7 @@ class Trainer:
 
             self.device_replay = DeviceReplayMemory(
                 cfg, train_ds, tcfg.batch_size, seed=tcfg.seed, device=dev,
-                loss_fn=pool_loss_fn)
+                loss_fn=pool_loss_fn, mesh=mesh)
             self.replay = self.device_replay  # stats/stop interface
         else:
             self.replay = ReplayMemory(cfg, train_ds, tcfg.batch_size,
@@ -217,6 +235,10 @@ class Trainer:
             print(f"Resumed from {path_or_dir} @ step {step}")
 
     def _to_device(self, *arrays):
+        """This rank's rows of host arrays, on its device."""
+        if self.mesh is not None:
+            return mesh_lib.shard_batch(self.mesh, tuple(
+                np.asarray(a) for a in arrays))
         return tuple(torch.from_numpy(np.asarray(a)).to(self.device)
                      for a in arrays)
 
@@ -278,22 +300,27 @@ class Trainer:
                             or mean_b > tcfg.max_brightness)
                 if diverged:
                     self.divergence_count += 1
-                    print(f"retouch diverged (mean={mean_b:.4f}); "
-                          f"refreshing slots")
+                    if self.is_main:
+                        print(f"retouch diverged (mean={mean_b:.4f}); "
+                              f"refreshing slots")
                 self.device_replay.replace(
                     idx, out.retouch, new_states, diverged=diverged,
                     retouch_loss=(out.metrics["retouch_loss_per_image"]
                                   if self.cached_reward else None))
             else:
-                retouch = out.retouch.cpu().numpy()
+                retouch = out.retouch
+                if self.mesh is not None:
+                    retouch = mesh_lib.all_gather(self.mesh, retouch)
+                retouch = retouch.cpu().numpy()
                 metrics, new_states = fetch_metrics(out.metrics,
                                                     out.new_states)
                 mean_b = float(retouch.mean())
                 if (not np.isfinite(retouch).all() or mean_b < 0.01
                         or mean_b > tcfg.max_brightness):
                     self.divergence_count += 1
-                    print(f"retouch diverged (mean={mean_b:.4f}); "
-                          f"refilling pool")
+                    if self.is_main:
+                        print(f"retouch diverged (mean={mean_b:.4f}); "
+                              f"refilling pool")
                     self.replay.fill_pool()
                 else:
                     self.replay.replace_memory(
@@ -320,7 +347,7 @@ class Trainer:
                     "reward": float(metrics["reward"]),
                     "penalty": float(metrics["penalty"]),
                 }, it)
-            if it % print_freq == 0:
+            if it % print_freq == 0 and self.is_main:
                 sel = metrics["selected_filter"]
                 names = [self.filter_names[int(s)] for s in sel[:4]]
                 stats = self.replay.stats()
@@ -332,15 +359,18 @@ class Trainer:
                       f"sel {names}",
                       f"pool {stats['size']}/{stats['avg_trajectory']:.2f}",
                       f"({(time.time() - t_start) / (k + 1):.2f}s/it)")
-            if it > 0 and it % cfg.val_freq == 0 and self.val_feed is not None:
+            if (it > 0 and it % cfg.val_freq == 0
+                    and self.val_feed is not None and self.is_main):
                 self.validate_trajectories(it)
             mark("validate")
             if it > 0 and it % cfg.save_model_freq == 0:
-                ckpt_lib.save(self.ckpt_dir, self.state, it)
-                # the reference's weights-only artifact for inference
-                ckpt_lib.save_weights_only(
-                    os.path.join(self.ckpt_dir, f"weights_iter_{it}.pt"),
-                    self.state)
+                if self.is_main:
+                    ckpt_lib.save(self.ckpt_dir, self.state, it)
+                    # the reference's weights-only artifact for inference
+                    ckpt_lib.save_weights_only(
+                        os.path.join(self.ckpt_dir, f"weights_iter_{it}.pt"),
+                        self.state)
+                mesh_lib.sync_global_devices(self.mesh)
             mark("end")
         return self.state
 

@@ -11,6 +11,11 @@ kernels' plain versions).  Outputs go under ``experiments/<data_name>-
 (``ckpt/<step>/state.pt``) and validation trajectories.  ``--task val``
 renders the validation set at full resolution with the agent of
 ``--model_weights`` (``eval/hr_render.py``) under ``--val_save_path``.
+
+``--dp N`` trains data parallel on N ranks (``train/mesh.py``): NCCL on N
+cards, or gloo with ``--device cpu``; below 0 takes every card.  Run
+alone, the CLI starts the ranks itself; under ``torchrun`` each rank joins
+the group torchrun started.  Rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -67,8 +72,8 @@ def parse_args(argv=None):
                    help="cap training iterations (smoke runs); default = "
                         "epochs*1000/batch like the reference")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel devices; only 0 (one device) is "
-                        "ported")
+                   help="data-parallel ranks: 0 off, N ranks (NCCL on N "
+                        "cards, gloo with --device cpu), below 0 every card")
     p.add_argument("--device_replay", action="store_true", default=True,
                    help="keep the replay image pool on the device "
                         "(default)")
@@ -138,9 +143,15 @@ def main(argv=None):
     args = parse_args(argv)
     if args.task not in ("train", "train_val", "val"):
         raise SystemExit(f"unknown task {args.task}")
-    if args.dp:
-        raise SystemExit(f"--dp {args.dp}: data parallelism is not ported "
-                         f"yet (ROADMAP P15); run with --dp 0 on one device")
+    mesh = None
+    if args.task != "val":
+        from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+        mesh, launched = mesh_lib.cli_mesh(
+            args.dp, args.device, "adaptiveisp_tpu_torch.train_isp:main",
+            argv)
+        if launched:
+            return None
 
     from adaptiveisp_tpu_torch.config import TrainConfig
     from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
@@ -184,7 +195,7 @@ def main(argv=None):
         device_replay=args.device_replay,
         cached_reward=not args.no_cached_reward,
         yolo_dtype=args.yolo_dtype, yolo_spec=spec, loss_hyp=loss_hyp,
-        device=args.device)
+        device=args.device, mesh=mesh)
     try:
         if args.resume:
             trainer.resume(args.resume)

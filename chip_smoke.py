@@ -174,6 +174,31 @@ Phases, each printing one JSON line:
      (``obs.trace.component_breakdown``), MFU against
      ``obs.roofline.device_peaks``; fails when more than 15 % of the
      device time falls outside every component;
+ 29. dp (``phase_dp``): data parallelism, two ranks on the one card
+     (gloo over CUDA tensors: NCCL refuses two ranks on one device), each
+     rank a fresh process (``parallel.launch``) running ``dp_rank``,
+     every number beside the single process's run on the card:
+     dp_train_step, 3 steps of the denoise-biased Config() agent (dropout
+     on) with YOLOv3 f32 and bf16 at global batch 8 @ 512 (4 a rank),
+     losses and reward within JAX's sharded-step tolerances, parameters
+     within the optimizer-noise bound (``_update_errs``), the ranks'
+     replicas bit for bit, K1 and K2 3 each a rank; dp_trainer,
+     ``Trainer(mesh=)`` at the RL path's full width (Config(), bf16
+     YOLOv3, global batch 8 @ 512) with the 128-slot pool (64 a rank), 3
+     iterations, a forced refresh on each shard and one more iteration:
+     finite history and pool, the ranks' history, sampled slots, states
+     and metadata bit for bit equal, K1 and K2 at least 3 each a rank;
+     dp_trainer_vs_cpu, the same at batch 4 @ 128 (YOLOv3-tiny f32,
+     dropout off) held against the same two ranks on the CPU
+     (``dp_trainer_rank``) as trainer_vs_cpu holds the single trainer;
+     dp_cli, ``train_isp --dp 1`` (NCCL, one rank) against ``--dp 0``,
+     the live checkpoint payload and history, each run's ms an iteration;
+     dp_validation, ``run_validation(mesh=)`` at batch 8, records and
+     mAP50 equal to one process's; dp_detector, dp_segment, dp_classify,
+     one step of YOLOv3 at 640 (batch 16), YOLOv3-seg at 640 (16) and
+     Darknet-53 at 224 (64), the loss within 2e-4 and every tensor within
+     JAX's sharded detector tolerances (2e-3, 2e-5); every rank's exit
+     code checked;
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
@@ -184,7 +209,8 @@ read just after: serving, train_bf16, train_f32, render, trainer,
 train_isp, train_isp_host_pool, validation_b1_free, validation_b1_forced,
 validation_b8_blend, validation_b1_merge_tta, val_cli, hr_render,
 train_isp_val, fixed_pipeline, fixed_step_fused, rest, detect_cli,
-export, kernel_sym; the CPU
+export, dp_train_step_f32/rank<r>, dp_train_step_bf16/rank<r>,
+dp_trainer/rank<r>, dp_validation/rank<r>, dp_cli, kernel_sym; the CPU
 comparisons' card runs count on none), the card's name and power limit,
 and as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, with no result line, without a CUDA device or
@@ -3843,6 +3869,720 @@ def phase_trace_breakdown(smi):
                              f"time outside every component")
 
 
+# --------------------------------------------------------------------- #
+# data parallelism: two gloo ranks on the one card (NCCL refuses two ranks
+# on one device), each the same run as JAX's device r of make_mesh(2)
+# --------------------------------------------------------------------- #
+DP_RANKS, DP_STEPS = 2, 3
+# the RL step's frozen detector: f32 and bf16 (the trainer's default),
+# both held to JAX's sharded-step tolerances (tests/test_train_eval.py:
+# value loss 1e-4, reward 1e-3 relative; the agent's loss as the reward)
+DP_DTYPES = ("f32", "bf16")
+DP_RTOL = {"value_loss": 1e-4, "reward": 1e-3, "agent_loss": 1e-3}
+# Trainer(mesh=): the 128-slot pool (64 a rank), 3 iterations; at the RL
+# path's full width (bf16 YOLOv3, global batch 8 @ 512, Config()) and at a
+# size the ranks on the CPU repeat (YOLOv3-tiny f32, 4 @ 128, dropout off)
+DP_TRAINER = dict(pool=128, iters=3)
+DP_TRAINER_VS_CPU = dict(batch=4, size=128, dtype="float32",
+                         cfg={"dropout_keep_prob": 1.0})
+DP_LOSS_RTOL = 2e-4                  # JAX's sharded detector step
+DP_PARAM_RTOL, DP_PARAM_ATOL = 2e-3, 2e-5
+
+
+def _dp_dir():
+    root = Path(__file__).resolve().parent / "build" / "dp_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    return root
+
+
+def _digest(sd):
+    """A hash of each tensor's bytes: the ranks' replicas compare bit for
+    bit without writing both to disk."""
+    import hashlib
+
+    return {k: hashlib.sha1(v.detach().float().cpu().contiguous().numpy()
+                            .tobytes()).hexdigest() for k, v in sd.items()}
+
+
+def _cpu_sd(sd):
+    return {k: v.detach().float().cpu().clone() for k, v in sd.items()}
+
+
+def _dp_conf():
+    """Everything the ranks need, so that a rank reads no module constant
+    (a CPU rehearsal changes them in the parent only)."""
+    from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC, resolve_spec
+
+    seg_spec, seg_ratio = _seg_spec()
+    root = _dp_dir()
+    return {"device": CARD if CARD == "cpu" else "cuda:0", "root": str(root),
+            "rl": dict(spec=YOLOV3_SPEC, size=SERVE_SIZE, batch=SERVE_BATCH,
+                       dtypes=DP_DTYPES, steps=DP_STEPS),
+            "trainer": dict(DP_TRAINER, data=str(_trainer_data_dir()),
+                            spec=YOLOV3_SPEC, batch=SERVE_BATCH,
+                            size=SERVE_SIZE, dtype="bfloat16", cfg={}),
+            "trainer_vs_cpu": dict(DP_TRAINER, **DP_TRAINER_VS_CPU,
+                                   data=str(_trainer_data_dir()),
+                                   spec=resolve_spec("yolov3-tiny")),
+            "val": dict(spec=YOLOV3_SPEC, size=SERVE_SIZE,
+                        batch=SERVE_BATCH, protocol=VAL_PROTOCOL,
+                        data=str(Path(__file__).resolve().parent / "build"
+                                 / "val_smoke" / "data.yaml")),
+            "det": dict(spec=YOLOV3_SPEC, size=DET_SIZE, batch=DET_BATCH,
+                        data=str(Path(__file__).resolve().parent / "build"
+                                 / "det_smoke" / "train" / "images"),
+                        batch_file=str(root / "det_batch.pt")),
+            "seg": dict(spec=seg_spec, ratio=seg_ratio, size=SEG_SIZE,
+                        batch=SEG_BATCH, nm=SEG_NM,
+                        data=str(Path(__file__).resolve().parent / "build"
+                                 / "seg_smoke" / "train" / "images"),
+                        batch_file=str(root / "seg_batch.pt")),
+            "cls": dict(spec=resolve_spec(CLS_BACKBONE), nc=CLS_CLASSES,
+                        size=CLS_SIZE, batch=CLS_BATCH,
+                        data=str(Path(__file__).resolve().parent / "build"
+                                 / "cls_smoke" / "train"),
+                        batch_file=str(root / "cls_batch.pt"))}
+
+
+def _trainer_data_dir():
+    root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    return root if (root / "data.yaml").exists() else _trainer_data()
+
+
+def _sync(device):
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize(device)
+
+
+def _timed_ms(fn, device):
+    """(fn(), its ms: CUDA events on the card, the host clock else)."""
+    import torch
+
+    if str(device).startswith("cuda"):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dp_rl(c, device, mesh=None):
+    """DP_STEPS train steps of the denoise-biased Config() agent (dropout
+    on) with the frozen YOLOv3 (c["dtype"]) at the RL path's batch and
+    size, from one seeded state and batch; over ``mesh`` each rank takes
+    its rows.  detect_loss_weight 0.05 keeps the seeded detector's loss
+    inside the reward's clip to [0, 1] (at the default 1.0 both losses
+    clip to 1 and the detector reaches neither reward nor gradient)."""
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.config import Config, TrainConfig
+    from adaptiveisp_tpu_torch.detect.loss import pad_targets
+    from adaptiveisp_tpu_torch.detect.model import anchors_in_grid_units
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+    from adaptiveisp_tpu_torch.train.optim import make_optimizer
+    from adaptiveisp_tpu_torch.train.step import (
+        init_train_state,
+        make_train_step,
+    )
+    from adaptiveisp_tpu_torch.train.trainer import imgsz_hyp
+
+    spec, size, n = c["spec"], c["size"], c["batch"]
+    cfg = Config(detect_loss_weight=0.05)
+    tcfg = TrainConfig(batch_size=n)
+    agent = api.load_adaptive_isp(cfg=cfg, seed=0, device=device).agent
+    agent.load_state_dict(_denoise_agent(cfg))
+    value = api.load_value(cfg, seed=1, device=device)
+    det = api.load_detector(spec=spec, seed=2, device=device,
+                            dtype=torch.bfloat16 if c["dtype"] == "bf16"
+                            else None).model
+    for net in (agent, value, det):
+        mesh_lib.replicate(mesh, net)
+    tx = make_optimizer(tcfg.lr, tcfg.max_iter_step)
+    state = init_train_state(agent, value, tx, tx)
+    step = make_train_step(det, cfg, tcfg, anchors_in_grid_units(spec),
+                           imgsz_hyp(size, spec["nc"], len(spec["anchors"])))
+    rng = np.random.RandomState(120)
+    labels = []
+    for _ in range(n):
+        k = rng.randint(2, 6)
+        labels.append(np.concatenate(
+            [rng.randint(0, spec["nc"], (k, 1)), rng.uniform(0.2, 0.8, (k, 2)),
+             rng.uniform(0.05, 0.4, (k, 2))], 1))
+    targets, tmask = pad_targets(labels, 64)
+    batch = (rng.rand(n, size, size, 3).astype(np.float32),
+             rng.rand(n, cfg.z_dim).astype(np.float32),
+             np.zeros((n, cfg.num_state_dim), np.float32), targets, tmask)
+    if mesh is not None:
+        step = mesh_lib.shard_train_step(step, mesh)
+        batch = mesh_lib.shard_batch(mesh, batch)
+    else:
+        batch = tuple(torch.from_numpy(a).to(device) for a in batch)
+    gen = torch.Generator(device=device)
+    _sync(device)
+    build.reset_launches()
+    metrics, ms = [], []
+    for i in range(c["steps"]):
+        gen.manual_seed(i)
+        out, t = _timed_ms(lambda: step(state, batch, gen, i / 100.0), device)
+        ms.append(t)
+        metrics.append({k: float(out.metrics[k]) for k in
+                        ("agent_loss", "value_loss", "reward", "penalty")})
+        metrics[-1]["selected"] = out.metrics["selected_filter"].tolist()
+    _sync(device)
+    return {"launches": dict(build.LAUNCHES), "metrics": metrics, "ms": ms,
+            "lr_sum": sum(tx.keywords["schedule"](i)
+                          for i in range(c["steps"])),
+            "agent": _cpu_sd(state.agent.state_dict()),
+            "value": _cpu_sd(state.value.state_dict())}
+
+
+def _dp_trainer(c, device, mesh):
+    """``Trainer(mesh=)``: the Config() roster (with c["cfg"]'s changes),
+    c["spec"] in c["dtype"] with cached rewards at global batch c["batch"]
+    @ c["size"], the device pool of c["pool"] slots sharded over the
+    ranks, c["iters"] iterations, then one forced refresh on each shard (a
+    stopped trajectory, a kept write-back and a diverged batch) and one
+    more iteration over the refreshed pool."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config, TrainConfig
+    from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.policy.states import (
+        STATE_STEP_DIM,
+        STATE_STOPPED_DIM,
+    )
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+    from adaptiveisp_tpu_torch.train.trainer import Trainer
+
+    data = check_dataset(str(Path(c["data"]) / "data.yaml"))
+    cfg = Config(replay_memory_size=c["pool"], **c["cfg"])
+    tcfg = TrainConfig(batch_size=c["batch"], imgsz=c["size"])
+    tr = Trainer(cfg, tcfg, data["train"],
+                 save_dir=str(Path(c["out"]) / f"exp{mesh.rank}"), log=False,
+                 yolo_spec=c["spec"], yolo_dtype=c["dtype"],
+                 device_replay=True, cached_reward=True,
+                 data_source=data["source"], device=device, mesh=mesh)
+    pool = tr.device_replay
+    seen, sample = [], pool.sample
+
+    def recorded(n):
+        got = sample(n)
+        seen.append((got[0].tolist(), got[2].tolist()))
+        return got
+
+    pool.sample = recorded
+    iter_s = []
+    try:
+        _sync(device)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        tr.train(max_steps=c["iters"] - 1, print_freq=10 ** 9,
+                 mark=lambda name: (_sync(device), iter_s.append(
+                     (name, time.perf_counter())))
+                 if name in ("start", "end") else None)
+        _sync(device)
+        launches = dict(build.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        # the forced refresh: batch rows [2r, 2r + 2) live on shard r
+        s = pool.shard_size
+        idx = np.array([0, 5, s, s + 5])
+        new_states = pool.states[idx].copy()
+        new_states[[0, 2], STATE_STOPPED_DIM] = 1   # refreshed
+        new_states[[1, 3], STATE_STEP_DIM] = 0      # written back
+        own = torch.as_tensor(idx[pool._own_rows(4)] - pool.lo,
+                              device=pool.images.device)
+        losses = mesh_lib.all_gather(mesh, pool.loss_in.index_select(0, own))
+        pool.replace(idx, pool.images.index_select(0, own) * 0.5, new_states,
+                     retouch_loss=losses + 1.0)
+        pool.replace(np.array([3, 6, s + 3, s + 6]), None, None,
+                     diverged=True)
+        tr.train(max_steps=c["iters"], print_freq=10 ** 9)
+    finally:
+        tr.close()
+    starts = [t for n, t in iter_s if n == "start"]
+    ends = [t for n, t in iter_s if n == "end"]
+    return {"seen": seen, "history": tr.history,
+            "states": pool.states.tolist(), "images": pool.images.cpu(),
+            "loss_in": pool.loss_in.cpu(),
+            "meta": [(os.path.basename(m["path"]), m["label"].tolist(),
+                      m["shape"]) for m in pool.meta],
+            "refreshes": pool.refreshes, "fresh_images": pool.fresh_images,
+            "launches": launches, "seconds": seconds,
+            "iter_ms": [(e - s) * 1e3 for s, e in zip(starts, ends)]}
+
+
+def _dp_validation(c, device, mesh=None):
+    """``run_validation`` at the reference protocol with the blend render
+    at the RL batch: Config() agent (seed 0), YOLOv3 with
+    ``spread_detector_state`` weights, the validation phase's labelled
+    images."""
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
+    from adaptiveisp_tpu_torch.data.datasets import ISPDataset
+    from adaptiveisp_tpu_torch.eval.validator import run_validation
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    cfg = Config()
+    agent = api.load_adaptive_isp(cfg=cfg, seed=0, device=device).agent
+    yolo = api.load_detector(spec=c["spec"], device=device,
+                             state_dict=spread_detector_state(c["spec"],
+                                                              7)).model
+    ds = ISPDataset(check_dataset(c["data"])["val"], img_size=c["size"],
+                    source="normalize", train=False)
+    _sync(device)
+    build.reset_launches()
+    r, ms = _timed_ms(lambda: run_validation(
+        cfg, agent.eval(), yolo.eval(), ds, **c["protocol"],
+        batch_size=c["batch"], mesh=mesh), device)
+    _sync(device)
+    return {"records": r["records"], "map50": r["map50"], "map": r["map"],
+            "ms": ms, "launches": dict(build.LAUNCHES)}
+
+
+def _dp_detector_step(kind, c, device, mesh=None):
+    """One step of the detector, segmentation or classifier trainer at its
+    full width on the batch in c["batch_file"] (the ranks' rows of it over
+    ``mesh``): (loss, model, EMA, ms)."""
+    import torch
+
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch import classify as cls
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    batch = torch.load(c["batch_file"], weights_only=False)
+    if kind == "cls":
+        model = cls.create_classifier(spec=c["spec"], nc=c["nc"],
+                                      device=device)
+        tr = cls.ClassifierTrainer(
+            model, cls.FolderDataset(c["data"], img_size=c["size"]),
+            cfg=cls.ClsTrainConfig(epochs=1, batch_size=c["batch"]),
+            device=device, mesh=mesh)
+    else:
+        from adaptiveisp_tpu_torch.detect.train_detector import DetTrainConfig
+
+        model = api.load_detector(spec=c["spec"], seed=0,
+                                  device=device).model
+        cfg = DetTrainConfig(epochs=1, batch_size=c["batch"])
+        if kind == "det":
+            from adaptiveisp_tpu_torch.data.detector_dataset import (
+                DetectorDataset,
+            )
+            from adaptiveisp_tpu_torch.detect.train_loop import (
+                DetectorTrainer,
+            )
+
+            tds = DetectorDataset(c["data"], img_size=c["size"],
+                                  batch_size=c["batch"], augment=False,
+                                  nc=c["spec"]["nc"])
+            tr = DetectorTrainer(model, c["spec"], tds, cfg=cfg,
+                                 loggers=False, device=device, mesh=mesh)
+        else:
+            from adaptiveisp_tpu_torch.data.segment_dataset import (
+                SegmentDataset,
+            )
+            from adaptiveisp_tpu_torch.detect.segment import SegmentTrainer
+
+            tds = SegmentDataset(c["data"], img_size=c["size"],
+                                 batch_size=c["batch"], augment=False,
+                                 mask_ratio=c["ratio"])
+            tr = SegmentTrainer(model, c["spec"], tds, cfg=cfg, nm=c["nm"],
+                                loggers=False, device=device, mesh=mesh)
+    arrays = tuple(batch)
+    if mesh is not None:
+        args = mesh_lib.shard_batch(mesh, arrays)
+    else:
+        args = tuple(torch.from_numpy(a).to(device) for a in arrays)
+    if kind == "cls":
+        args = (args[0], args[1].long())
+    _sync(device)
+    (state, out), ms = _timed_ms(lambda: tr.step_fn(tr.state, *args), device)
+    return {"loss": float(out["loss"]), "ms": ms,
+            "model": state.model.state_dict(), "ema": state.ema.params}
+
+
+def dp_rank(root):
+    """One rank of the data-parallel phases (started by ``phase_dp``):
+    the RL step, the trainer, validation and the three detector trainers'
+    first steps over a two-rank gloo mesh, each main run's launch counts
+    read around it; writes rank<r>.pt under ``root``."""
+    import torch
+
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    conf = torch.load(os.path.join(root, "conf.pt"), weights_only=False)
+    dev = conf["device"]
+    mesh = mesh_lib.make_mesh(DP_RANKS, device=dev, backend="gloo")
+    if dev.startswith("cuda"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // DP_RANKS))
+    out = {**{f"rl_{d}": _dp_rl(dict(conf["rl"], dtype=d), mesh.device,
+                                mesh) for d in conf["rl"]["dtypes"]},
+           "trainer_vs_cpu": _dp_trainer(
+               dict(conf["trainer_vs_cpu"], out=os.path.join(root, "small")),
+               mesh.device, mesh)}
+    full = _dp_trainer(dict(conf["trainer"], out=root), mesh.device, mesh)
+    images = full.pop("images")   # the rank's shard: 64 slots @ 512
+    full.update(images_finite=bool(torch.isfinite(images).all()),
+                loss_in_finite=bool(torch.isfinite(full["loss_in"]).all()),
+                shard_slots=int(images.shape[0]))
+    del images
+    out["trainer"] = full
+    if dev.startswith("cuda"):
+        torch.cuda.empty_cache()
+    out["val"] = _dp_validation(conf["val"], mesh.device, mesh)
+    for kind in ("det", "seg", "cls"):
+        r = _dp_detector_step(kind, conf[kind], mesh.device, mesh)
+        keep = {"loss": r["loss"], "ms": r["ms"],
+                "model_digest": _digest(r["model"])}
+        if mesh.is_main:
+            keep.update(model=_cpu_sd(r["model"]), ema=_cpu_sd(r["ema"]))
+        out[kind] = keep
+        del r
+        if dev.startswith("cuda"):
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(root, f"rank{mesh.rank}.pt"))
+
+
+def dp_trainer_rank(root):
+    """``_dp_trainer`` alone on a two-rank gloo mesh on the CPU: the card's
+    run's reference."""
+    import torch
+
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    conf = torch.load(os.path.join(root, "conf.pt"), weights_only=False)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DP_RANKS))
+    mesh = mesh_lib.make_mesh(DP_RANKS, device="cpu")
+    out = _dp_trainer(dict(conf["trainer_vs_cpu"],
+                           out=os.path.join(root, "cpu")), "cpu", mesh)
+    torch.save(out, os.path.join(root, f"cpu_rank{mesh.rank}.pt"))
+
+
+def _dp_batches(conf):
+    """The detector trainers' first batches (rows [r B/D, (r+1) B/D) are
+    rank r's), saved for the ranks."""
+    import torch
+
+    from adaptiveisp_tpu_torch import classify as cls
+    from adaptiveisp_tpu_torch.data.detector_dataset import DetectorDataset
+    from adaptiveisp_tpu_torch.data.segment_dataset import SegmentDataset
+
+    c = conf["det"]
+    torch.save(list(next(DetectorDataset(
+        c["data"], img_size=c["size"], batch_size=c["batch"], augment=False,
+        nc=c["spec"]["nc"]).epoch_batches(shuffle=False))), c["batch_file"])
+    c = conf["seg"]
+    torch.save(list(next(SegmentDataset(
+        c["data"], img_size=c["size"], batch_size=c["batch"], augment=False,
+        mask_ratio=c["ratio"]).epoch_batches(shuffle=False))),
+        c["batch_file"])
+    c = conf["cls"]
+    torch.save(list(next(cls.FolderDataset(c["data"], img_size=c["size"])
+                         .epoch_batches(c["batch"], shuffle=False))),
+               c["batch_file"])
+
+
+def _dp_cli(data_yaml):
+    """``train_isp --dp 1`` (NCCL, world size 1) against ``--dp 0``: 3
+    iterations (0..2) at the RL batch and size each, cuDNN deterministic;
+    (the runs: each one's live checkpoint payload, history, launches and
+    ms an iteration (the DP machinery's own cost at one rank); the paths
+    where the payloads differ bit for bit)."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from adaptiveisp_tpu_torch import train_isp
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train import checkpoint as ckpt_lib
+    from adaptiveisp_tpu_torch.train.trainer import Trainer
+
+    runs, cwd = {}, os.getcwd()
+    base = ["--task", "train", "--data_cfg", str(data_yaml),
+            "--batch_size", str(SERVE_BATCH), "--imgsz", str(SERVE_SIZE),
+            "--max_steps", "2", "--device", CARD,
+            "--weights", "no_detector_weights.pt"]
+    train = Trainer.train
+    try:
+        for dp in (0, 1):
+            marks = []
+
+            def timed(self, *a, **k):
+                def mark(name):
+                    if name in ("start", "end"):
+                        _sync(CARD)
+                        marks.append((name, time.perf_counter()))
+                return train(self, *a, **k, mark=mark)
+
+            Trainer.train = timed
+            build.reset_launches()
+            os.chdir(_dp_dir())
+            try:
+                with contextlib.redirect_stderr(sys.stdout):
+                    tr = train_isp.main(base + ["--dp", str(dp),
+                                                "--save_path", f"dp{dp}"])
+            finally:
+                os.chdir(cwd)
+            _sync(CARD)
+            starts = [t for n, t in marks if n == "start"]
+            ends = [t for n, t in marks if n == "end"]
+            runs[dp] = {"payload": ckpt_lib.payload(tr.state),
+                        "history": tr.history,
+                        "launches": dict(build.LAUNCHES),
+                        "mesh": None if tr.mesh is None else
+                        [tr.mesh.size, tr.mesh.backend],
+                        "iter_ms": [(e - s) * 1e3
+                                    for s, e in zip(starts, ends)]}
+    finally:
+        Trainer.train = train
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return runs, _payload_diffs(runs[1]["payload"], runs[0]["payload"])
+
+
+def _close_models(got, want):
+    """Every tensor of ``got`` within (DP_PARAM_RTOL, DP_PARAM_ATOL) of
+    ``want`` (JAX's sharded detector test): the worst excess and its key."""
+    worst, where = 0.0, None
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        g, w = got[k].double(), w.detach().double().cpu()
+        excess = float(((g - w).abs() - DP_PARAM_RTOL * w.abs()).max())
+        if excess > worst:
+            worst, where = excess, k
+    return worst, where
+
+
+def phase_dp(smi):
+    """The data-parallel phases (module docstring, phase 29): the
+    single-process references on the card, then one launch of two gloo
+    ranks on the card (``dp_rank``), one on the CPU (``dp_trainer_rank``),
+    then ``train_isp --dp 1`` against ``--dp 0``.  Returns each main run's
+    launch counts by rank."""
+    import gc
+
+    import torch
+
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    conf = _dp_conf()
+    root = Path(conf["root"])
+    torch.save(conf, root / "conf.pt")
+    _dp_batches(conf)
+    t0 = time.perf_counter()
+    ref = {**{f"rl_{d}": _dp_rl(dict(conf["rl"], dtype=d), CARD)
+              for d in conf["rl"]["dtypes"]},
+           "val": _dp_validation(conf["val"], CARD)}
+    for kind in ("det", "seg", "cls"):
+        r = _dp_detector_step(kind, conf[kind], CARD)
+        ref[kind] = {"loss": r["loss"], "ms": r["ms"],
+                     "model": _cpu_sd(r["model"]), "ema": _cpu_sd(r["ema"])}
+        del r
+    gc.collect()
+    if CARD != "cpu":
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_lib.launch("chip_smoke:dp_rank", DP_RANKS, str(root),
+                    device=conf["device"], backend="gloo").wait()
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_lib.launch("chip_smoke:dp_trainer_rank", DP_RANKS, str(root),
+                    device="cpu").wait()
+    cpu_ranks = [torch.load(root / f"cpu_rank{r}.pt", weights_only=False)
+                 for r in range(DP_RANKS)]
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli, cli_diffs = _dp_cli(Path(conf["trainer"]["data"]) / "data.yaml")
+    cli_s = time.perf_counter() - t0
+    bad = []
+
+    # ---- dp_train_step: each step against the single-process step ----
+    for d in conf["rl"]["dtypes"]:
+        key, tol = f"rl_{d}", DP_RTOL
+        rl = {"steps": [], "launches": [r[key]["launches"] for r in ranks],
+              "ms": [r[key]["ms"] for r in ranks],
+              "single_ms": ref[key]["ms"]}
+        for i, want in enumerate(ref[key]["metrics"]):
+            got = ranks[0][key]["metrics"][i]
+            rel = {k: abs(got[k] - want[k]) / (abs(want[k]) + 1e-5)
+                   for k in tol}
+            rl["steps"].append({"rel_err": rel, "selected_equal":
+                                got["selected"] == want["selected"],
+                                "single": {k: want[k] for k in tol}})
+            if (any(rel[k] > tol[k] for k in tol)
+                    or any(r[key]["metrics"][i] != got for r in ranks)):
+                bad.append(f"dp_train_step {d} step {i}: {rel}")
+        lr_sum = ref[key]["lr_sum"]
+        rl["params"] = {net: _update_errs(ranks[0][key][net],
+                                          ref[key][net], lr_sum)
+                        for net in ("agent", "value")}
+        rl["replicas_equal"] = all(
+            torch.equal(ranks[0][key][net][k], ranks[1][key][net][k])
+            for net in ("agent", "value") for k in ranks[0][key][net])
+        for net, (worst, share, _) in rl["params"].items():
+            if worst > 2.0 or share > 0.01:
+                bad.append(f"dp_train_step {d} {net} parameters {worst} "
+                           f"{share}")
+        if not rl["replicas_equal"]:
+            bad.append(f"dp_train_step {d} replicas differ")
+        for r, lc in enumerate(rl["launches"]):
+            if (lc["nlm_gray_fwd"] < DP_STEPS
+                    or lc["nlm_gray_bwd"] < DP_STEPS):
+                bad.append(f"dp_train_step {d} rank {r} launches {lc}")
+        emit({"phase": "dp_train_step", "nvidia_smi": smi,
+              "ranks": DP_RANKS, "backend": "gloo",
+              "global_batch": conf["rl"]["batch"],
+              "size": conf["rl"]["size"], "detector": f"yolov3 {d}", **rl,
+              "tolerance": {**{f"{k}_rtol": v for k, v in tol.items()},
+                            "params": "every element within 2 summed lr, "
+                            "under 1 % beyond 1 % of it"}})
+
+    # ---- dp_trainer: full width, the two ranks one run ----
+    iters = DP_TRAINER["iters"]
+    full = [r["trainer"] for r in ranks]
+    finite = all(bool(np.isfinite([[h[k] for k in h] for h in f["history"]])
+                      .all()) and f["images_finite"] and f["loss_in_finite"]
+                 for f in full)
+    same = {k: all(f[k] == full[0][k] for f in full)
+            for k in ("history", "seen", "states", "meta", "refreshes",
+                      "fresh_images")}
+    ok = (finite and all(same.values())
+          and all(len(f["history"]) == iters + 1 for f in full)
+          and full[0]["refreshes"] >= 6
+          and all(f["shard_slots"] == DP_TRAINER["pool"] // DP_RANKS
+                  for f in full)
+          and all(f["launches"]["nlm_gray_fwd"] >= iters
+                  and f["launches"]["nlm_gray_bwd"] >= iters for f in full))
+    emit({"phase": "dp_trainer", "nvidia_smi": smi, "ranks": DP_RANKS,
+          "backend": "gloo", **DP_TRAINER,
+          "global_batch": conf["trainer"]["batch"],
+          "size": conf["trainer"]["size"], "detector": "yolov3 bf16",
+          "history_finite": finite, "ranks_equal": same,
+          "refreshes": full[0]["refreshes"],
+          "sampled_slots": [s[0] for s in full[0]["seen"]],
+          "launches": [f["launches"] for f in full],
+          "iter_ms": [f["iter_ms"] for f in full],
+          "seconds": [f["seconds"] for f in full], "ok": ok})
+    if not ok:
+        bad.append("dp_trainer")
+
+    # ---- dp_trainer_vs_cpu: the card's two ranks against the CPU's ----
+    tcmp = []
+    for r in range(DP_RANKS):
+        g, c = ranks[r]["trainer_vs_cpu"], cpu_ranks[r]
+        rel = max(abs(hg[k] - hc[k]) / (abs(hc[k]) + 1e-6)
+                  for hg, hc in zip(g["history"], c["history"]) for k in hc)
+        img = float((g["images"] - c["images"]).abs().max())
+        loss = float((g["loss_in"] - c["loss_in"]).abs().max()
+                     / (c["loss_in"].abs().max() + 1e-6))
+        ok = (g["seen"] == c["seen"] and g["states"] == c["states"]
+              and g["meta"] == c["meta"] and rel <= 1e-3 and img <= 1e-3
+              and loss <= 1e-3 and g["refreshes"] == c["refreshes"] >= 6
+              and len(g["history"]) == iters + 1
+              and g["launches"]["nlm_gray_fwd"] >= iters
+              and g["launches"]["nlm_gray_bwd"] >= iters)
+        tcmp.append({"rank": r, "history_rel_err": rel,
+                     "pool_image_max_abs_err": img, "pool_loss_rel_err": loss,
+                     "sampled_equal": g["seen"] == c["seen"],
+                     "states_equal": g["states"] == c["states"],
+                     "refreshes": [g["refreshes"], c["refreshes"]],
+                     "launches": g["launches"], "iter_ms": g["iter_ms"],
+                     "ok": ok})
+        if not ok:
+            bad.append(f"dp_trainer_vs_cpu rank {r}")
+    emit({"phase": "dp_trainer_vs_cpu", "ranks": DP_RANKS, **DP_TRAINER,
+          **{k: v for k, v in DP_TRAINER_VS_CPU.items() if k != "cfg"},
+          "detector": "yolov3-tiny f32", "cpu_seconds": cpu_s,
+          "sampled_slots": [s[0] for s in
+                            ranks[0]["trainer_vs_cpu"]["seen"]],
+          "tolerance": {"history_rtol": 1e-3, "pool_image_atol": 1e-3,
+                        "pool_loss_rtol": 1e-3}, "by_rank": tcmp})
+
+    # ---- dp_cli ----
+    ok = (cli[1]["mesh"] == [1, "nccl" if CARD != "cpu" else "gloo"]
+          and not cli_diffs and cli[1]["history"] == cli[0]["history"]
+          and cli[0]["launches"] == cli[1]["launches"]
+          and cli[1]["launches"]["nlm_gray_fwd"] == 3)
+    emit({"phase": "dp_cli", "mesh": cli[1]["mesh"],
+          "payload_diffs": cli_diffs[:10],
+          "history_equal": cli[1]["history"] == cli[0]["history"],
+          "iter_ms": {f"dp{d}": r["iter_ms"] for d, r in cli.items()},
+          "launches": {f"dp{d}": r["launches"] for d, r in cli.items()},
+          "seconds": cli_s, "ok": ok})
+    if not ok:
+        bad.append("dp_cli")
+
+    # ---- dp_validation ----
+    vals = [r["val"] for r in ranks]
+    ok = all(v["records"] == ref["val"]["records"]
+             and v["map50"] == ref["val"]["map50"] for v in vals)
+    emit({"phase": "dp_validation", "images": len(ref["val"]["records"]),
+          "batch": SERVE_BATCH, "records_equal": ok,
+          "map50": [v["map50"] for v in vals] + [ref["val"]["map50"]],
+          "ms": [v["ms"] for v in vals], "single_ms": ref["val"]["ms"],
+          "launches": [v["launches"] for v in vals]})
+    if not ok:
+        bad.append("dp_validation")
+
+    # ---- dp_detector, dp_segment, dp_classify ----
+    for kind, name in (("det", "dp_detector"), ("seg", "dp_segment"),
+                       ("cls", "dp_classify")):
+        want = ref[kind]
+        loss_rel = [abs(r[kind]["loss"] - want["loss"]) / abs(want["loss"])
+                    for r in ranks]
+        model = _close_models(ranks[0][kind]["model"], want["model"])
+        ema = _close_models(ranks[0][kind]["ema"], want["ema"])
+        replicas = (ranks[0][kind]["model_digest"]
+                    == ranks[1][kind]["model_digest"])
+        ok = (max(loss_rel) <= DP_LOSS_RTOL and model[0] <= DP_PARAM_ATOL
+              and ema[0] <= DP_PARAM_ATOL and replicas)
+        emit({"phase": name, "global_batch": conf[kind]["batch"],
+              "size": conf[kind]["size"], "loss_rel_err": loss_rel,
+              "model_excess": model, "ema_excess": ema,
+              "replicas_equal": replicas,
+              "ms": [r[kind]["ms"] for r in ranks], "single_ms": want["ms"],
+              "tolerance": {"loss_rtol": DP_LOSS_RTOL,
+                            "param_rtol": DP_PARAM_RTOL,
+                            "param_atol": DP_PARAM_ATOL}, "ok": ok})
+        if not ok:
+            bad.append(name)
+    emit({"phase": "dp_seconds", "references": ref_s, "card_ranks": card_s,
+          "cpu_ranks": cpu_s, "cli": cli_s})
+    if bad:
+        raise AssertionError(f"data parallelism: {bad}")
+    paths = {}
+    for r in range(DP_RANKS):
+        for d in conf["rl"]["dtypes"]:
+            paths[f"dp_train_step_{d}/rank{r}"] = ranks[r][f"rl_{d}"][
+                "launches"]
+        paths[f"dp_trainer/rank{r}"] = ranks[r]["trainer"]["launches"]
+        paths[f"dp_validation/rank{r}"] = ranks[r]["val"]["launches"]
+    paths["dp_cli"] = cli[1]["launches"]
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3895,6 +4635,7 @@ def main() -> int:
         export_launches = timed("export", phase_export, smi)
         timed("triton", phase_triton)
         timed("trace_breakdown", phase_trace_breakdown, smi)
+        dp_launches = timed("dp", phase_dp, smi)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
@@ -3908,7 +4649,8 @@ def main() -> int:
                   "val_cli": val_cli, "hr_render": hr,
                   "train_isp_val": train_isp_val, "fixed_pipeline": fixed,
                   "fixed_step_fused": fixed_fused, "rest": rest_launches,
-                  "detect_cli": cli_launches, "export": export_launches}
+                  "detect_cli": cli_launches, "export": export_launches,
+                  **dp_launches}
 
     def entry(name, counter, source, replaces, cases, err_key, paths,
               ms_key="ms"):

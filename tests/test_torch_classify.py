@@ -344,8 +344,10 @@ def test_classify_cli_matches_jax(data, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("which", ["classify", "segment_train"])
 def test_dp_exits_naming_p15(which, tmp_path):
+    """--dp N on the card (the default device) with no card visible
+    raises before any rank starts: no fallback to the CPU or to gloo."""
     main = cls.main if which == "classify" else seg.train_main
-    with pytest.raises(SystemExit, match="P15"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         main(["--data", str(tmp_path), "--dp", "2"])
 
 

@@ -6,9 +6,11 @@ model declares (``jax.eval_shape`` of its init), carried across with
 ``convert.yolo_from_flax``.
 """
 
-import numpy as np
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -48,7 +50,10 @@ def flax_yolo_variables(spec, seed):
 @pytest.fixture(scope="module")
 def yolov3():
     jm, v = flax_yolo_variables(YOLOV3_SPEC, 3)
-    port = tmodel.DetectionModel(YOLOV3_SPEC)
+    # the weights below replace flax's initial distributions (6 s of
+    # truncated normals for 62 M parameters)
+    with mock.patch.object(tmodel, "flax_init_", lambda m: m):
+        port = tmodel.DetectionModel(YOLOV3_SPEC)
     port.load_state_dict(yolo_from_flax(v["params"], v["batch_stats"],
                                         YOLOV3_SPEC))
     return jm, v, port.eval()

@@ -296,8 +296,12 @@ def test_detector_dataset_batches_match_jax(sets, case):
             assert np.array_equal(g[1], w[1]) and np.array_equal(g[2], w[2])
     if kw.get("cache") == "disk":
         assert all(os.path.isfile(p) for p in got.cache._disk)
-    with pytest.raises(NotImplementedError, match="P15"):
-        next(got.epoch_batches(shard_rank=1, shard_count=2))
+    # a host's shard: JAX's strided slice (whole batches round robin
+    # with rect); its first batch
+    g, w = (next(ds.epoch_batches(t_max=16, shard_rank=1, shard_count=2))
+            for ds in (got, want))
+    assert np.abs(g[0] - w[0]).max() < 1e-6
+    assert np.array_equal(g[1], w[1]) and np.array_equal(g[2], w[2])
 
 
 @pytest.mark.parametrize("mode", ["ram", "disk"])
@@ -631,7 +635,8 @@ def test_hyp_evolution_matches_jax(tmp_path):
 def test_train_loop_cli_one_epoch(sets, tmp_path, monkeypatch):
     """``main`` on a toy hyp YAML with --device cpu: the run directory, a
     best.pt that loads as detector weights, --batch-size -1 off the card,
-    resume, and the parallel flags refused naming P15."""
+    resume, --tp refused naming the next parallelism slice (P15) and
+    --dp beyond the visible cards refused."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     hyp_yaml = tmp_path / "hyp.yaml"
     hyp_yaml.write_text("lr0: 0.02\nmosaic: 0.5\nwarmup_epochs: 0.5\n")
@@ -653,6 +658,7 @@ def test_train_loop_cli_one_epoch(sets, tmp_path, monkeypatch):
     again = tl.main(args + ["--batch-size", "8", "--epochs", "2",
                             "--resume", os.path.join(save, "last.pt")])
     assert [h.epoch for h in again] == [1]
-    for flag in ("--dp", "--tp"):
-        with pytest.raises(SystemExit, match="P15"):
-            tl.main(args + [flag, "2"])
+    with pytest.raises(SystemExit, match="P15"):
+        tl.main(args + ["--tp", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tl.main(args + ["--dp", "2", "--device", "cuda"])

@@ -369,7 +369,7 @@ def test_run_validation_matches_jax(stack, jax_runs, tmp_path, mode):
 def test_validator_rejects_mesh(stack):
     ds = ISPDataset(stack["data_t"], img_size=64, source="normalize",
                     train=False)
-    with pytest.raises(NotImplementedError, match="P15"):
+    with pytest.raises(TypeError, match="make_mesh"):
         run_validation(FAST, stack["agent"], stack["yolo"], ds,
                        mesh=object())
 
@@ -393,6 +393,23 @@ def test_run_hr_validation_matches_jax(stack, tmp_path, monkeypatch):
     package's weights-only pickle."""
     hr_dir = _toy_set(tmp_path / "hr", n=2, hw=(96, 128), seed=91)
     data = {"val": hr_dir, "source": "normalize"}
+    # JAX's function builds its agent with an eager init (about 14 s of
+    # small compiles) whose variables the pickle replaces, and applies it
+    # op by op: its module here, applied under one jit (one frame shape)
+    def jitted_agent(cfg, key, image_size, batch):
+        agent = JAgent(cfg=cfg)
+        fn = jax.jit(lambda v, x, z, s, hr: agent.apply(
+            v, x, z, s, 1.0, train=False, high_res=hr))
+
+        class Jitted:
+            @staticmethod
+            def apply(v, x, z, s, progress, train, high_res):
+                assert progress == 1.0 and not train
+                return fn(v, x, z, s, high_res)
+
+        return Jitted, None
+
+    monkeypatch.setattr(jhr, "create_agent_state", jitted_agent)
     frames_j = _capture_frames(monkeypatch, jhr)
     frames_t = _capture_frames(monkeypatch, hr_render)
     jhr.run_hr_validation(JFAST.replace(test_steps=2),

@@ -117,7 +117,9 @@ def test_render_cli_matches_jax_render(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter, pulls in
-    neither jax nor any module of the JAX package."""
+    neither jax nor any module of the JAX package.  The only refusals that
+    still name the parallelism queue (P15) are tensor parallelism and a
+    frame spread over devices."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import adaptiveisp_tpu_torch as p\n"
@@ -135,7 +137,8 @@ def test_port_imports_no_jax():
         "'serve.rest', 'detect_cli', 'raw.bayer', 'raw.unprocess', "
         "'detect.segment', 'data.segment_dataset', 'classify', "
         "'detect.export', 'detect.export_tf', 'export_cli', "
-        "'serve.triton', 'obs.roofline', 'obs.trace')}\n"
+        "'serve.triton', 'obs.roofline', 'obs.trace', 'train.mesh', "
+        "'parallel')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -144,3 +147,11 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.split(" ", 1)
     assert int(count) >= 70 and bad.strip() == "[]", res.stdout
+    port = os.path.join(REPO, "adaptiveisp_tpu_torch")
+    refusals = sorted(
+        os.path.relpath(os.path.join(d, f), port)
+        for d, _, files in os.walk(port) for f in files
+        if f.endswith(".py")
+        and "P15" in open(os.path.join(d, f)).read())
+    assert refusals == ["detect/train_loop.py", "eval/hr_render.py"], \
+        refusals

@@ -1,7 +1,9 @@
 """The port's ``Trainer`` against the JAX package's.
 
-One JAX ``Trainer`` per module (built once: it compiles its step): the
-reduced ``config_fast_filters`` roster with dropout off, the 2-level mini
+One JAX ``Trainer`` per module (built once: it compiles its step; its
+networks start from seeded numpy over ``jax.eval_shape``, ``_seeded_inits``,
+not its eager inits): the reduced ``config_fast_filters`` roster with
+dropout off, the 2-level mini
 detector of ``tests/test_trainer_validator.py`` in f32, 64 px, batch 2, a
 pool of 8 slots on the device with cached rewards, on a toy set of 10 PNGs
 with YOLO labels.  The port's ``Trainer`` (on the CPU) takes the same
@@ -87,6 +89,61 @@ def _toy_set(root, n=10, seed=33):
     return str(root / "images")
 
 
+def _seeded(module, args, seed):
+    """Seeded numpy flax variables over ``jax.eval_shape`` of
+    ``module.init`` (no init compile): kernels normal with variance
+    1 / fan-in, BatchNorm scales in [0.5, 1.5], other parameters normal
+    with scale 0.1, statistics at init's (mean 0, variance 1)."""
+    shapes = jax.eval_shape(lambda k: module.init(
+        {"params": k, "dropout": k}, *args, train=False),
+        jax.random.PRNGKey(0))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, a):
+        name = jax.tree_util.keystr(path)
+        if "batch_stats" in name:
+            return (np.zeros if name.endswith("['mean']") else np.ones)(
+                a.shape, np.float32)
+        if name.endswith("['kernel']"):
+            fan_in = int(np.prod(a.shape[:-1]))
+            return (rng.randn(*a.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name.endswith("['scale']"):
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        return (rng.randn(*a.shape) * 0.1).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _seeded_inits(monkeypatch):
+    """JAX's Trainer builds its networks with eager ``init``s (about 20 s
+    of small compiles on the CPU); the port takes whatever weights JAX
+    starts from, so seeded ones over ``jax.eval_shape`` serve."""
+    from adaptiveisp_tpu.detect.model import DetectionModel as JDetection
+    from adaptiveisp_tpu.policy.agent import Agent as JAgent
+    from adaptiveisp_tpu.policy.value import Value as JValue
+    from adaptiveisp_tpu.train import trainer as jtrainer
+
+    x = np.zeros((1, 64, 64, 3), np.float32)
+    s = np.zeros((1, JCFG.num_state_dim), np.float32)
+
+    def agent(cfg, key, image_size, batch):
+        m = JAgent(cfg=cfg)
+        return m, _seeded(m, (x, np.zeros((1, cfg.z_dim), np.float32), s,
+                              0.0), 1)
+
+    def value(cfg, key, image_size, batch):
+        m = JValue(cfg=cfg)
+        return m, _seeded(m, (x, s), 2)
+
+    def detector(key, spec, imgsz):
+        m = JDetection(spec=spec)
+        return m, _seeded(m, (x,), 3)
+
+    monkeypatch.setattr(jtrainer, "create_agent_state", agent)
+    monkeypatch.setattr(jtrainer, "create_value_state", value)
+    monkeypatch.setattr(jtrainer, "create_detector", detector)
+
+
 def _record_samples(pool):
     """Wrap pool.sample to record each sampled (slots, states)."""
     seen, sample = [], pool.sample
@@ -104,8 +161,13 @@ def _record_samples(pool):
 def runs(tmp_path_factory):
     """Both trainers after 3 iterations (it 0..2), with what they sampled."""
     root = tmp_path_factory.mktemp("trainer")
-    jtr = JTrainer(JCFG, JTrainConfig(**TKW), _toy_set(root / "jax"),
-                   save_dir=str(root / "jexp"), **TRAINER_KW)
+    monkeypatch = pytest.MonkeyPatch()
+    _seeded_inits(monkeypatch)
+    try:
+        jtr = JTrainer(JCFG, JTrainConfig(**TKW), _toy_set(root / "jax"),
+                       save_dir=str(root / "jexp"), **TRAINER_KW)
+    finally:
+        monkeypatch.undo()
     try:
         s0 = jax.device_get(jtr.state)
         yv = jax.device_get(jtr.yolo_vars)
@@ -274,8 +336,8 @@ def test_train_isp_cli_one_step(tmp_path, monkeypatch):
     """``python -m adaptiveisp_tpu_torch.train_isp --device cpu
     --max_steps 1`` on a toy data YAML (tiny detector, reduced roster):
     iterations 0 and 1 run; ``--task val`` renders the validation set at
-    full resolution; dp refuses with its queue item; ``--yolo_spec`` takes
-    the zoo's names."""
+    full resolution; ``--dp`` on a card that is not there refuses (no
+    fallback); ``--yolo_spec`` takes the zoo's names."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     monkeypatch.chdir(tmp_path)
     _toy_set(tmp_path / "toy")
@@ -294,8 +356,8 @@ def test_train_isp_cli_one_step(tmp_path, monkeypatch):
     out = train_isp.main(base + ["--task", "val", "--steps", "1",
                                  "--val_save_path", str(tmp_path / "val")])
     assert len(os.listdir(os.path.join(out, "step-0"))) == 10
-    with pytest.raises(SystemExit, match="P15"):
-        train_isp.main(base + ["--dp", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_isp.main(base + ["--dp", "2", "--device", "cuda"])
     # any spec of the zoo trains; a name that is neither a spec nor a file
     # raises
     spec_at = base.index("yolov3-tiny")
