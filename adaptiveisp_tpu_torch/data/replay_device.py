@@ -62,14 +62,14 @@ class DeviceReplayMemory:
         self.pool_size = cfg.replay_memory_size
         self.device = torch.device(device)
         self.mesh = mesh
-        self.n_shards = 1 if mesh is None else mesh.size
+        self.n_shards = 1 if mesh is None else mesh.data_size
         if self.pool_size % self.n_shards:
             raise ValueError(
                 f"replay_memory_size {self.pool_size} must divide evenly "
                 f"over {self.n_shards} mesh shards")
         self.shard_size = self.pool_size // self.n_shards
         # this rank's slots [lo, lo + shard_size)
-        self.lo = 0 if mesh is None else mesh.rank * self.shard_size
+        self.lo = 0 if mesh is None else mesh.data_rank * self.shard_size
         self.feeder = BatchFeeder(dataset, batch_size=feeder_batch,
                                   seed=seed)
         self.rng = np.random.RandomState(seed + 1)
@@ -107,7 +107,7 @@ class DeviceReplayMemory:
     def _own_rows(self, n: int) -> np.ndarray:
         """Batch positions of this rank's rows in a batch of ``n``."""
         per = n // self.n_shards
-        r = 0 if self.mesh is None else self.mesh.rank
+        r = 0 if self.mesh is None else self.mesh.data_rank
         return np.arange(r * per, (r + 1) * per)
 
     # ------------------------------------------------------------------ #

@@ -206,12 +206,12 @@ def batch_loss(preds: Sequence[torch.Tensor], targets, tmask,
              for i, pred in enumerate(preds)]
     counts = torch.stack([t[1].sum() for t in terms]
                          + [t[4].sum() for t in terms])
-    sharded = mesh is not None and mesh.size > 1
+    sharded = mesh is not None and mesh.data_size > 1
     if sharded:
         from adaptiveisp_tpu_torch.parallel import all_reduce
 
         counts = all_reduce(mesh, counts)
-        bs = bs * mesh.size
+        bs = bs * mesh.data_size
     nl = len(preds)
     lbox = lobj = lcls = 0.0
     for i, (box_sums, _, obj_means, cls_sums, _) in enumerate(terms):

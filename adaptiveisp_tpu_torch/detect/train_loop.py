@@ -54,6 +54,7 @@ from adaptiveisp_tpu_torch.detect.train_detector import (
 )
 from adaptiveisp_tpu_torch.obs.plots import plots_available
 from adaptiveisp_tpu_torch import parallel
+from adaptiveisp_tpu_torch import tensor_parallel as tp_lib
 
 IOUV = np.linspace(0.5, 0.95, 10)
 
@@ -197,8 +198,12 @@ class DetectorTrainer:
     has the global batch's BatchNorm statistics, loss divisors and summed
     gradients, so every rank holds the single-device run's model; rank 0
     alone validates (every rank follows its fitness) and writes
-    checkpoints, logs and plots.  A mesh with a ``model``
-    axis (tensor parallelism) raises.
+    checkpoints, logs and plots.  A (data x model) mesh
+    (``train/mesh.make_mesh_dp_tp``) also splits the model's layers over
+    the model ranks (``tensor_parallel.py``): each rank holds its block of
+    the output channels of every split layer's weights, BatchNorm
+    statistics, optimizer moments and EMA; checkpoints and the validated
+    EMA model hold the whole tensors, equal to a single process's.
 
     Subclass hooks (the segmentation trainer's): ``_build_step`` supplies
     the step, ``_validate`` the per-epoch metrics and fitness,
@@ -219,12 +224,8 @@ class DetectorTrainer:
                  noval: bool = False, nosave: bool = False,
                  save_period: int = -1, image_weights: bool = False,
                  callbacks=None, loggers: bool = True, device="cuda"):
-        if mesh is not None and "model" in getattr(mesh, "axis_names", ()):
-            raise NotImplementedError(
-                "a mesh with a 'model' axis (tensor-parallel detector "
-                "training) comes with the next parallelism slice (ROADMAP "
-                "P15: sp, ep, pp, tp)")
         self.mesh = mesh
+        self.tp = mesh is not None and parallel.MODEL_AXIS in mesh.axis_names
         self.is_main = mesh is None or mesh.is_main
         self.device = (api.resolve_device(device) if mesh is None
                        else mesh.device)
@@ -238,7 +239,8 @@ class DetectorTrainer:
         self.hyp = hyp or LossHyp(obj=1.0 * (imgsz / 640) ** 2)
         self.save_dir = save_dir
         self.val_batches = val_batches
-        self.plots = plots and save_dir is not None and self.is_main
+        self._final_plots = plots and save_dir is not None
+        self.plots = self._final_plots and self.is_main
         self.names = names
         self.noval = noval            # only validate the final epoch
         self.nosave = nosave          # only save the final checkpoint
@@ -261,6 +263,9 @@ class DetectorTrainer:
                                                self.cfg.ema_decay)
         # the EMA weights are validated on a copy (live BN statistics)
         self._eval_model = copy.deepcopy(self.model).eval()
+        if self.tp:
+            self.step_fn, self.state = tp_lib.shard_detector_train_step(
+                self.step_fn, mesh, self.state)
         self.stopper = EarlyStopping(self.cfg.patience)
         self.best_fitness = 0.0
         self.history: List[EpochLog] = []
@@ -299,14 +304,29 @@ class DetectorTrainer:
                 max_batches=self.val_batches)
         return metrics, fitness_of(metrics)
 
+    def _whole(self, state: Dict[str, torch.Tensor]):
+        """``state`` (model-named tensors) with the split ones whole: a
+        collective over the model ranks under tensor parallelism."""
+        if not self.tp:
+            return state
+        return tp_lib.gather_state(self.mesh, state, self.model._tp_specs)
+
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
         """The EMA parameters with the live BatchNorm statistics (what
-        validation and the learning gate's detector use)."""
-        return self.state.ema.state_dict(self.model)
+        validation and the learning gate's detector use), whole (every
+        rank calls it under tensor parallelism)."""
+        return self._whole(self.state.ema.state_dict(self.model))
+
+    def _load_eval_model(self):
+        """The eval copy of the model takes ``ema_state_dict()``; under
+        tensor parallelism every rank calls it before rank 0 validates."""
+        self._eval_model.load_state_dict(self.ema_state_dict())
 
     def ema_model(self):
-        """The eval copy of the model holding ``ema_state_dict()``."""
-        self._eval_model.load_state_dict(self.ema_state_dict())
+        """The eval copy of the model holding ``ema_state_dict()`` (under
+        tensor parallelism, as ``_load_eval_model`` last gathered it)."""
+        if not self.tp:
+            self._load_eval_model()
         return self._eval_model.eval()
 
     def _maybe_rescale(self, x: torch.Tensor) -> torch.Tensor:
@@ -365,6 +385,12 @@ class DetectorTrainer:
     def _save(self, name: str, epoch: int, fit: float):
         if self.save_dir is None:
             return
+        model, ema = (self._whole(self.model.state_dict()),
+                      self._whole(self.state.ema.params))
+        opt_state = (tp_lib.gather_optimizer_state(
+            self.mesh, self.state.optimizer, self.model,
+            self.model._tp_specs) if self.tp
+            else self.state.optimizer.state_dict())
         if not self.is_main:   # rank 0 writes; the ranks meet after it
             parallel.sync_global_devices(self.mesh)
             return
@@ -373,12 +399,12 @@ class DetectorTrainer:
         payload = {
             "epoch": epoch,
             "best_fitness": self.best_fitness,
-            "model": cpu(self.model.state_dict()),
-            "ema": cpu(self.state.ema.params),
+            "model": cpu(model),
+            "ema": cpu(ema),
             "updates": int(self.state.ema.updates),
             "fitness": fit,
             # optimizer + step so a resume continues exactly
-            "opt_state": self.state.optimizer.state_dict(),
+            "opt_state": opt_state,
             "step": int(self.state.step),
             # the anchors the model was trained against (may differ from
             # the base spec after an AutoAnchor refit)
@@ -398,15 +424,23 @@ class DetectorTrainer:
         """Restore model, optimizer, EMA, step, best fitness and the data
         streams from a ``last.pt`` checkpoint and return the epoch to
         continue from.  A checkpoint without optimizer state (a stripped
-        one) resumes the weights with a fresh optimizer."""
+        one) resumes the weights with a fresh optimizer.  Under tensor
+        parallelism each rank takes its blocks of the whole tensors."""
         ckpt = load_detector_checkpoint(path)
         st = self.state
-        self.model.load_state_dict(ckpt["model"])
+        specs = self.model._tp_specs if self.tp else {}
+        cut = ((lambda sd: tp_lib.slice_state(self.mesh, sd, specs))
+               if self.tp else (lambda sd: sd))
+        self.model.load_state_dict(cut(ckpt["model"]))
         st.optimizer = self.tx(self.model)
         if "opt_state" in ckpt:
-            st.optimizer.load_state_dict(ckpt["opt_state"])
+            opt_state = ckpt["opt_state"]
+            if self.tp:
+                opt_state = tp_lib.slice_optimizer_state(
+                    self.mesh, opt_state, st.optimizer, self.model, specs)
+            st.optimizer.load_state_dict(opt_state)
         if ckpt.get("ema") is not None:
-            for k, v in ckpt["ema"].items():
+            for k, v in cut(ckpt["ema"]).items():
                 st.ema.params[k].copy_(v)
             st.ema.updates = int(ckpt["updates"])
         st.step = int(ckpt.get("step", 0))
@@ -450,6 +484,8 @@ class DetectorTrainer:
             if validated:
                 # rank 0 validates; every rank takes its metrics, so the
                 # saves and the early stop below decide alike on each
+                if self.tp:
+                    self._load_eval_model()
                 metrics, fit = parallel.on_main(self.mesh, self._validate)
                 for c, ap in metrics.get("class_ap", {}).items():
                     if 0 <= c < len(self.maps):
@@ -485,6 +521,9 @@ class DetectorTrainer:
             if self.stopper(epoch, fit):
                 break
         self.callbacks.run("on_train_end")
+        if (self.tp and self._final_plots and plots_available()
+                and self.history and self.val_ds is not None):
+            self._load_eval_model()   # every rank: rank 0 plots
         if curves and self.history:
             from adaptiveisp_tpu_torch.obs.plots import plot_results
 
@@ -633,20 +672,18 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="data-parallel ranks: 0 off, N ranks (NCCL on N "
                         "cards, gloo with --device cpu), below 0 every card")
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel over N devices (the next "
-                        "parallelism slice)")
+                   help="tensor-parallel: split every conv's output "
+                        "channels over N ranks (with --dp M a data x "
+                        "model mesh of max(M, 1) x N ranks; NCCL on "
+                        "cards, gloo with --device cpu)")
     p.add_argument("--resume", default=None,
                    help="last.pt checkpoint to continue from (restores "
                         "optimizer / EMA / epoch / data streams)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.tp:
-        raise SystemExit(f"--tp {args.tp}: tensor-parallel detector training "
-                         f"comes with the next parallelism slice (ROADMAP "
-                         f"P15: sp, ep, pp, tp); --dp N runs data parallel")
     mesh, launched = parallel.cli_mesh(
         args.dp, args.device, "adaptiveisp_tpu_torch.detect.train_loop:main",
-        argv)
+        argv, n_axis=args.tp, axis=parallel.MODEL_AXIS)
     if launched:
         return None
 

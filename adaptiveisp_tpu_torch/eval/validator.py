@@ -204,8 +204,8 @@ def run_validation(cfg, agent, yolo, dataset: ISPDataset, steps: int = 5,
         rollout's and NMS's own."""
         batch, tensors = prepped
         nb = tensors[0].shape[0]
-        sharded = (mesh is not None and mesh.size > 1
-                   and nb % mesh.size == 0)
+        sharded = (mesh is not None and mesh.data_size > 1
+                   and nb % mesh.data_size == 0)
         if sharded:
             # the rank's rows (the noise is [steps, batch, z])
             rows = data_sharding(mesh, nb)

@@ -29,10 +29,12 @@ def mask_grid(h: int, w: int, dtype=torch.float32, device=None):
     return gy, gx
 
 
-def get_mask(cfg, img, mask_parameters=None):
+def get_mask(cfg, img, mask_parameters=None, row_window=None):
     """Spatial strength mask in [minimum_strength, 1].
 
     img: [N, H, W, 3]; mask_parameters: [N, 6] raw (pre-squash) or None.
+    row_window: ``(lo, height)`` when img holds rows ``lo ...`` of a frame
+    of ``height`` rows (a spatial rank's block); the grid is the frame's.
     Returns [N, H, W, 1], or a broadcastable ones tensor when masking is off.
     """
     if not cfg.masking or mask_parameters is None:
@@ -40,7 +42,12 @@ def get_mask(cfg, img, mask_parameters=None):
     mp = tanh_range(-FILTER_INPUT_RANGE, FILTER_INPUT_RANGE, initial=0)(
         mask_parameters)
     n, h, w, _ = img.shape
-    gy, gx = mask_grid(h, w, img.dtype, img.device)
+    if row_window is None:
+        gy, gx = mask_grid(h, w, img.dtype, img.device)
+    else:
+        lo, height = row_window
+        gy, gx = (g[lo:lo + h] for g in mask_grid(height, w, img.dtype,
+                                                   img.device))
 
     def col(k):
         return mp[:, k, None, None, None]

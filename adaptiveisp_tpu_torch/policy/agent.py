@@ -69,7 +69,8 @@ class Agent(nn.Module):
     def forward(self, x, z, states, progress, train: bool = False,
                 high_res=None, selected_filter_id=None,
                 render: str = "blend",
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                high_res_rows=None):
         """Run one policy step.
 
         x [N, H, W, 3]; z [N, z_dim]; states [N, num_state_dim]; progress a
@@ -81,7 +82,9 @@ class Agent(nn.Module):
         int or a scalar int tensor forcing the action for the whole batch; a
         negative value means the agent's own choice.  ``high_res``: an
         optional [N, H', W', 3] frame of any size, rendered with the
-        proxy's parameters, selection and masks.
+        proxy's parameters, selection and masks; ``high_res_rows`` (a
+        ``parallel.Rows``) when it is a spatial rank's block of rows: the
+        windowed filters then exchange halos with the neighbouring ranks.
 
         Returns (out, new_states, surrogate, penalty, high_res_out, info);
         high_res_out is None without ``high_res``.
@@ -128,17 +131,18 @@ class Agent(nn.Module):
         # ---- render ----
         mask_list = mask_params if cfg.masking else None
         if render == "switch":
-            def draw(img):
+            def draw(img, rows=None):
                 return bank.render_switch(cfg, img, squashed, sel[0],
-                                          mask_list)
+                                          mask_list, rows=rows)
         elif render == "blend":
-            def draw(img):
+            def draw(img, rows=None):
                 return bank.render_blend(cfg, img, squashed, onehot,
-                                         mask_list)
+                                         mask_list, rows=rows)
         else:
             raise ValueError(f"unknown render mode {render!r}")
         out = draw(x)
-        high_res_out = None if high_res is None else draw(high_res)
+        high_res_out = (None if high_res is None
+                        else draw(high_res, high_res_rows))
 
         # ---- new states ----
         step = states[:, STATE_STEP_DIM:STATE_STEP_DIM + 1]

@@ -16,6 +16,8 @@ renders the validation set at full resolution with the agent of
 cards, or gloo with ``--device cpu``; below 0 takes every card.  Run
 alone, the CLI starts the ranks itself; under ``torchrun`` each rank joins
 the group torchrun started.  Rank 0 writes the outputs.
+``--task val --spatial_shard N`` spreads each full-resolution frame's rows
+over N ranks the same way.
 """
 
 from __future__ import annotations
@@ -62,8 +64,9 @@ def parse_args(argv=None):
                    default="experiments/adaptiveisp-val")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--spatial_shard", type=int, default=1,
-                   help="spread each full-res frame's rows over N devices "
-                        "during --task val; only 1 is ported")
+                   help="spread each full-res frame's rows over N ranks "
+                        "during --task val (NCCL on N cards, gloo with "
+                        "--device cpu)")
     p.add_argument("--cfg", type=str, default=None,
                    help="python module exporting `cfg` (a port Config), "
                         "e.g. adaptiveisp_tpu_torch.configs."
@@ -143,15 +146,19 @@ def main(argv=None):
     args = parse_args(argv)
     if args.task not in ("train", "train_val", "val"):
         raise SystemExit(f"unknown task {args.task}")
-    mesh = None
-    if args.task != "val":
-        from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
 
+    if args.task != "val":
         mesh, launched = mesh_lib.cli_mesh(
             args.dp, args.device, "adaptiveisp_tpu_torch.train_isp:main",
             argv)
-        if launched:
-            return None
+    else:
+        mesh, launched = mesh_lib.cli_mesh(
+            0, args.device, "adaptiveisp_tpu_torch.train_isp:main", argv,
+            n_axis=args.spatial_shard if args.spatial_shard > 1 else 0,
+            axis=mesh_lib.SPATIAL_AXIS)
+    if launched:
+        return None
 
     from adaptiveisp_tpu_torch.config import TrainConfig
     from adaptiveisp_tpu_torch.data.dataset_config import check_dataset
@@ -176,7 +183,7 @@ def main(argv=None):
         return run_hr_validation(cfg, tcfg, data, args.model_weights,
                                  args.val_save_path, steps=args.steps,
                                  spatial_shard=args.spatial_shard,
-                                 device=args.device)
+                                 device=args.device, mesh=mesh)
     spec = resolve_spec(args.yolo_spec) if args.yolo_spec else YOLOV3_SPEC
     yolo_sd = load_yolo_weights(args.weights, spec)
     loss_hyp = None

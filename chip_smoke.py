@@ -98,8 +98,8 @@ Phases, each printing one JSON line:
  14. detector_train: detector training at full width through
      ``detect.train_loop.DetectorTrainer``: full YOLOv3 (61.9 M parameters,
      80 classes), 640 px, batch 16, f32, the default hyp (mosaic, HSV,
-     flips, perspective) on 64 seeded synthetic-shapes PNGs under
-     ``build/det_smoke`` (16 more for validation), 2 epochs of 4 steps with
+     flips, perspective) on 32 seeded synthetic-shapes PNGs under
+     ``build/det_smoke`` (16 more for validation), 2 epochs of 2 steps with
      validation and checkpoints each epoch; step ms (CUDA events, the
      optimizer update and the EMA apart), images/s, the host's data ms per
      batch against the step's device ms and the busy share, validation and
@@ -199,6 +199,28 @@ Phases, each printing one JSON line:
      Darknet-53 at 224 (64), the loss within 2e-4 and every tensor within
      JAX's sharded detector tolerances (2e-3, 2e-5); every rank's exit
      code checked;
+ 30. axes (``phase_axes``): JAX's other parallel axes, two gloo ranks on
+     the one card as (1 x 2) meshes, one launch (``axes_rank``), each
+     against the single process on the card: sp_render,
+     ``make_sharded_render`` on 2 x 2160 x 3840 frames through exposure,
+     improved_wb, ccm, gamma, denoise and sharpen, each rank's 1080 rows
+     within 1e-6 (the pointwise stages and sharpen exactly; the largest
+     difference printed by stage), K1 once a rank; sp_hr, ``train_isp
+     --task val --spatial_shard 2`` on the hr_render phase's frames (384
+     and the odd 341 rows) against ``--spatial_shard 1``, every frame
+     within 1e-6; ep_blend, ``make_ep_blend_render`` (5 filters a rank)
+     at 8 @ 512 with one-hot weights (two images on denoise: K1 once on
+     the rank that owns it, never on the other) and soft weights against
+     ``render_blend``, within 1e-5 relative and 1e-6; pp_cli,
+     ``render_isp --pipe 2 --window 4 --batch 2`` (denoise, sharpen_usm)
+     on the render phase's 8 PNGs against ``--pipe 0``, PNGs equal, K1 on
+     the denoise rank only, and whether gloo sends CUDA tensors;
+     tp_detector, ``shard_detector_train_step`` (``DetectorTrainer(mesh=
+     make_mesh_dp_tp(1, 2))``) on YOLOv3 at 640, batch 16, f32, two steps:
+     losses within 1e-5 relative, the gathered model and EMA within 2e-3 /
+     2e-5, each rank holding half of the split tensors' parameters and
+     moments; then ``train_loop --tp 1 --dp 1`` on NCCL against no mesh,
+     one epoch of the detector images, last.pt bit for bit;
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
@@ -210,7 +232,8 @@ train_isp, train_isp_host_pool, validation_b1_free, validation_b1_forced,
 validation_b8_blend, validation_b1_merge_tta, val_cli, hr_render,
 train_isp_val, fixed_pipeline, fixed_step_fused, rest, detect_cli,
 export, dp_train_step_f32/rank<r>, dp_train_step_bf16/rank<r>,
-dp_trainer/rank<r>, dp_validation/rank<r>, dp_cli, kernel_sym; the CPU
+dp_trainer/rank<r>, dp_validation/rank<r>, dp_cli, sp_render/rank<r>,
+sp_hr/rank<r>, ep_blend/rank<r>, pp_cli/rank<r>, kernel_sym; the CPU
 comparisons' card runs count on none), the card's name and power limit,
 and as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, with no result line, without a CUDA device or
@@ -246,7 +269,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 TRAINER_WARMUP, TRAINER_ITERS = 3, 20
 TRAINER_IMAGES, TRAINER_VAL = 64, 8
 MAIN_GATE = np.array([1, 0, 0.3, 1, 0, 1, 1, 0], np.float32)
-DET_IMAGES, DET_VAL, DET_SIZE, DET_BATCH = 64, 16, 640, 16
+# 32 training images (2 steps an epoch at 16) since PR 13: the detector
+# phases' depth, cut to keep the smoke with the axes phases in its time
+DET_IMAGES, DET_VAL, DET_SIZE, DET_BATCH = 32, 16, 640, 16
 DET_EPOCHS = 2
 DET_CPU_SIZE, DET_CPU_BATCH, DET_CPU_STEPS = 256, 2, 2
 
@@ -2156,9 +2181,9 @@ def phase_fixed_pipeline(smi, det_sd):
 
 
 def _det_data():
-    """64 seeded 640 x 640 synthetic-shapes PNGs for training and 16 for
-    validation, 2-5 filled rectangles each with a YOLO label of one of 80
-    classes, and a data YAML over the validation images, under
+    """DET_IMAGES seeded 640 x 640 synthetic-shapes PNGs for training and
+    16 for validation, 2-5 filled rectangles each with a YOLO label of one
+    of 80 classes, and a data YAML over the validation images, under
     build/det_smoke."""
     import shutil
     from pathlib import Path
@@ -2210,7 +2235,7 @@ def phase_detector_train(smi):
     """Detector training at full width on the card: ``DetectorTrainer`` on
     full YOLOv3 (80 classes), 640 px, batch 16, f32, the default hyp
     (mosaic, HSV, flips, perspective), validation and checkpoints every
-    epoch, for 2 epochs of 4 steps; each step timed by CUDA events (the
+    epoch, for 2 epochs of 2 steps; each step timed by CUDA events (the
     step, its optimizer update and EMA apart), each batch's host data time
     by the host clock; then a second trainer resumed from the first
     epoch's checkpoint runs the second epoch, equal bit for bit (cuDNN
@@ -4583,6 +4608,635 @@ def phase_dp(smi):
     return paths
 
 
+# the parallel axes (phase 30): two gloo ranks on the one card, each a
+# (1 x 2) mesh; sizes at the main paths' widths
+AXES_RANKS = 2
+SP_FRAMES = (2,) + UHD                  # 2 x 2160 x 3840, 199 MB
+SP_CHAIN = ("exposure", "improved_wb", "ccm", "gamma", "denoise", "sharpen")
+SP_ATOL = 1e-6      # ccm's library product and K1 on a slab; else exact
+EP_BATCH, EP_SIZE = SERVE_BATCH, SERVE_SIZE
+EP_RTOL, EP_ATOL = 1e-5, 1e-6           # JAX's own (tests/test_ep_pp.py)
+PP_STAGES = ("denoise:0.4", "sharpen_usm:1.2,0.6")
+PP_WINDOW, PP_BATCH = 4, 2
+TP_STEPS = 2
+TP_LOSS_RTOL = 1e-5
+# the spec, size and batch of the tp phase and of the NCCL CLI run (the
+# detector phases'); a CPU rehearsal sets them small
+TP_SPEC_NAME = "yolov3"
+
+
+def _axes_dir():
+    root = Path(__file__).resolve().parent / "build" / "axes_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    return root
+
+
+def _axes_conf():
+    """What the ranks read (a CPU rehearsal changes the constants in the
+    parent only)."""
+    from adaptiveisp_tpu_torch.detect.spec import resolve_spec
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    root = _axes_dir()
+    return {"device": CARD if CARD == "cpu" else "cuda:0", "root": str(root),
+            "sp": dict(frames=SP_FRAMES, chain=SP_CHAIN, seed=31),
+            "ep": dict(batch=EP_BATCH, size=EP_SIZE, seed=32),
+            "pp": dict(source=str(build_dir / "render_smoke" / "imgs"),
+                       stages=PP_STAGES, window=PP_WINDOW, batch=PP_BATCH),
+            "hr": dict(data=str(build_dir / "hr_smoke" / "data.yaml"),
+                       weights=str(build_dir / "hr_smoke" / "agent.pt"),
+                       size=SERVE_SIZE, steps=STEPS),
+            "tp": dict(spec=resolve_spec(TP_SPEC_NAME), size=DET_SIZE,
+                       batch=DET_BATCH, steps=TP_STEPS,
+                       data=str(build_dir / "det_smoke" / "train"
+                                / "images"),
+                       batch_file=str(root / "tp_batch.pt"),
+                       ref_file=str(root / "tp_ref.pt"))}
+
+
+def _sp_inputs(c, device):
+    """The sp phase's frames (drawn on the device from a seed, the same on
+    every rank) and each stage's per-image parameters."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.ops.bank import get_spec
+
+    cfg = Config()
+    g = torch.Generator(device=device).manual_seed(c["seed"])
+    frames = torch.rand(tuple(c["frames"]) + (3,), generator=g,
+                        device=device)
+    rng = np.random.RandomState(c["seed"])
+    params = []
+    for name in c["chain"]:
+        spec = get_spec(cfg, name)
+        feat = torch.from_numpy(rng.randn(c["frames"][0], spec.n_params)
+                                .astype(np.float32) * 0.5)
+        params.append(spec.squash(cfg, feat).to(device))
+    return cfg, frames, params
+
+
+def _ep_inputs(c, device):
+    """Config()'s ten filters' squashed parameters for a batch, one-hot
+    weights with two images on denoise, and soft weights."""
+    import torch
+
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.ops.bank import filter_specs
+
+    cfg = Config()
+    g = torch.Generator(device=device).manual_seed(c["seed"])
+    n = c["batch"]
+    img = torch.rand((n, c["size"], c["size"], 3), generator=g,
+                     device=device)
+    rng = np.random.RandomState(c["seed"])
+    params = [s.squash(cfg, torch.from_numpy(
+        rng.randn(n, s.n_params).astype(np.float32) * 0.5)).to(device)
+        for s in filter_specs(cfg)]
+    k = cfg.n_filters
+    actions = rng.randint(0, k, n)
+    actions[:2] = cfg.filters.index("denoise")
+    onehot = torch.from_numpy(np.eye(k, dtype=np.float32)[actions])
+    soft = rng.rand(n, k).astype(np.float32)
+    soft = torch.from_numpy(soft / soft.sum(1, keepdims=True))
+    return cfg, img, params, onehot.to(device), soft.to(device)
+
+
+def _sp_render_rank(c, device):
+    """make_sharded_render on the rank's rows of the 4K frames (the main
+    run: K1 once), then each stage on the rank's rows of the whole
+    chain's input to that stage, against the whole frames' stage."""
+    import torch
+
+    from adaptiveisp_tpu_torch.ops.bank import make_sharded_render, render_fixed
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh_2d(1, AXES_RANKS, device=device,
+                                 backend="gloo")
+    cfg, frames, params = _sp_inputs(c, device)
+    height = frames.shape[1]
+    rows = mesh_lib.Rows(mesh, height)
+    lo, hi = rows.bounds
+    block = frames[:, lo:hi].contiguous()
+    fn = make_sharded_render(cfg, mesh, c["chain"])
+    with torch.no_grad():
+        fn(block, params, height)
+        _sync(device)
+        build.reset_launches()
+        out, ms = _timed_ms(lambda: fn(block, params, height), device)
+        launches = dict(build.LAUNCHES)
+        stage_err, x = {}, frames
+        for name, p in zip(c["chain"], params):
+            y = render_fixed(cfg, x, name, p)
+            got = render_fixed(cfg, x[:, lo:hi].contiguous(), name, p,
+                               rows=rows)
+            stage_err[name] = float((got - y[:, lo:hi]).abs().max())
+            x = y
+        err = float((out - x[:, lo:hi]).abs().max())
+        whole = mesh_lib.gather_rows(mesh, out, height)
+        gathered = bool(torch.equal(whole[:, lo:hi], out))
+    return {"rows": [lo, hi], "ms": ms, "launches": launches,
+            "max_abs_err": err, "stage_max_abs_err": stage_err,
+            "gathered_equal": gathered}
+
+
+def _ep_blend_rank(c, device):
+    """make_ep_blend_render (5 filters a rank) on one-hot weights (the main
+    run) and soft weights against render_blend in one process."""
+    import torch
+
+    from adaptiveisp_tpu_torch.ops.bank import render_blend
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.ops.ep import make_ep_blend_render
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh_dp_ep(1, AXES_RANKS, device=device,
+                                    backend="gloo")
+    cfg, img, params, onehot, soft = _ep_inputs(c, device)
+    fn = make_ep_blend_render(cfg, mesh)
+    out = {}
+    with torch.no_grad():
+        fn(img, params, soft)
+        _sync(device)
+        for name, w in (("onehot", onehot), ("soft", soft)):
+            build.reset_launches()
+            got, ms = _timed_ms(lambda: fn(img, params, w), device)
+            launches = dict(build.LAUNCHES)
+            want = render_blend(cfg, img, params, w)
+            d = (got - want).abs()
+            out[name] = {"ms": ms, "launches": launches,
+                         "max_abs_err": float(d.max()),
+                         "excess": float((d - EP_RTOL * want.abs()).max())}
+    return out
+
+
+def _pp_cli_args(c, device, out, pipe):
+    args = ["--source", c["source"], "--device", str(device), "--out", out,
+            "--exist-ok", "--batch", str(c["batch"])]
+    for s in c["stages"]:
+        args += ["--stage", s]
+    if pipe:
+        args += ["--pipe", str(len(c["stages"])), "--window",
+                 str(c["window"])]
+    return args
+
+
+def _pp_cli_rank(c, root, device):
+    """render_isp --pipe 2 --window 4 in this rank (the CLI joins the
+    ranks' group): its wall ms and launch counts."""
+    import contextlib
+
+    from adaptiveisp_tpu_torch import render_isp
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        render_isp.main(_pp_cli_args(c, device, os.path.join(root, "pp"),
+                                     True))
+    _sync(device)
+    return {"ms": (time.perf_counter() - t0) * 1e3,
+            "launches": dict(build.LAUNCHES)}
+
+
+def _hr_frames(run):
+    """Run ``run()`` with eval.hr_render's writes captured (the frames
+    before PNG quantisation, by relative path)."""
+    from adaptiveisp_tpu_torch.eval import hr_render
+
+    saved, frames = hr_render.save_img, {}
+
+    def capture(img, path):
+        frames[os.path.join(*Path(path).parts[-2:])] = np.array(img)
+        saved(img, path)
+
+    hr_render.save_img = capture
+    try:
+        run()
+    finally:
+        hr_render.save_img = saved
+    return frames
+
+
+def _sp_hr_args(c, device, out, shards):
+    return ["--task", "val", "--data_cfg", c["data"], "--model_weights",
+            c["weights"], "--imgsz", str(c["size"]), "--steps",
+            str(c["steps"]), "--device", str(device), "--val_save_path", out,
+            "--spatial_shard", str(shards)]
+
+
+def _sp_hr_rank(c, root, device):
+    """train_isp --task val --spatial_shard 2 in this rank: its frames
+    (rank 0 writes), wall ms and launch counts."""
+    from adaptiveisp_tpu_torch import train_isp
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    frames = _hr_frames(lambda: train_isp.main(_sp_hr_args(
+        c, device, os.path.join(root, "hr_sp"), AXES_RANKS)))
+    _sync(device)
+    return {"ms": (time.perf_counter() - t0) * 1e3,
+            "launches": dict(build.LAUNCHES), "frames": frames}
+
+
+def _tp_trainer(c, device, mesh=None):
+    """The detector trainer at the tp phase's width (augmentation off)."""
+    from adaptiveisp_tpu_torch import api
+    from adaptiveisp_tpu_torch.data.detector_dataset import DetectorDataset
+    from adaptiveisp_tpu_torch.detect.train_detector import DetTrainConfig
+    from adaptiveisp_tpu_torch.detect.train_loop import DetectorTrainer
+
+    model = api.load_detector(spec=c["spec"], seed=0, device=device).model
+    tds = DetectorDataset(c["data"], img_size=c["size"],
+                          batch_size=c["batch"], augment=False,
+                          nc=c["spec"]["nc"])
+    return DetectorTrainer(model, c["spec"], tds,
+                           cfg=DetTrainConfig(epochs=1, batch_size=c["batch"]),
+                           loggers=False, device=device, mesh=mesh)
+
+
+def _tp_steps(tr, c, device, mesh=None):
+    """c["steps"] steps on the saved batch (the rank's rows over a mesh):
+    losses and ms."""
+    import torch
+
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    arrays = tuple(torch.load(c["batch_file"], weights_only=False))
+    args = (mesh_lib.shard_batch(mesh, arrays) if mesh is not None else
+            tuple(torch.from_numpy(a).to(device) for a in arrays))
+    losses, ms = [], []
+    for _ in range(c["steps"]):
+        _sync(device)
+        (tr.state, out), t = _timed_ms(lambda: tr.step_fn(tr.state, *args),
+                                       device)
+        losses.append(float(out["loss"]))
+        ms.append(t)
+    return losses, ms
+
+
+def _tp_rank(c, device):
+    """shard_detector_train_step (through DetectorTrainer(mesh=)) on a
+    (1 x 2) data x model mesh: the steps, each rank's bytes, and on rank 0
+    the gathered model and EMA against the single process's."""
+    import torch
+
+    from adaptiveisp_tpu_torch import tensor_parallel as tp_lib
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh_dp_tp(1, AXES_RANKS, device=device,
+                                    backend="gloo")
+    tr = _tp_trainer(c, device, mesh)
+    losses, ms = _tp_steps(tr, c, device, mesh)
+    specs = tr.model._tp_specs
+    split = {k for k, s in specs.items() if s}
+    local = tr.model.state_dict()
+    moments = {n: st for n, st in zip(
+        [n for n, _ in tr.model.named_parameters()],
+        [tr.state.optimizer.state[p] for p in tr.model.parameters()])}
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    out = {"losses": losses, "ms": ms, "bytes": dict(
+        tp_lib.state_bytes(tr.state),
+        split_params=nbytes(local[k] for k in split if k in moments),
+        split_moments=nbytes(v for k in split if k in moments
+                             for v in moments[k].values()))}
+    model = _cpu_sd(tr._whole(tr.model.state_dict()))
+    ema = _cpu_sd(tr._whole(tr.state.ema.params))
+    if mesh.is_main:
+        ref = torch.load(c["ref_file"], weights_only=False)
+        out["model_excess"] = _close_models(model, ref["model"])
+        out["ema_excess"] = _close_models(ema, ref["ema"])
+        out["loss_rel_err"] = [abs(a - b) / abs(b) for a, b in
+                               zip(losses, ref["losses"])]
+    return out
+
+
+def axes_rank(root):
+    """One rank of the parallel-axes phases (started by ``phase_axes``):
+    sp_render, ep_blend, tp_detector, pp_cli and sp_hr over (1 x 2) gloo
+    meshes, each main run's launch counts read around it; writes
+    rank<r>.pt under ``root``."""
+    import torch
+    import torch.distributed as dist
+
+    conf = torch.load(os.path.join(root, "conf.pt"), weights_only=False)
+    dev = conf["device"]
+    if dev.startswith("cuda"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // AXES_RANKS))
+    seconds, out = {}, {}
+    for name, fn in (("sp_render", lambda: _sp_render_rank(conf["sp"], dev)),
+                     ("ep_blend", lambda: _ep_blend_rank(conf["ep"], dev)),
+                     ("tp_detector", lambda: _tp_rank(conf["tp"], dev)),
+                     ("pp_cli", lambda: _pp_cli_rank(conf["pp"], root, dev)),
+                     ("sp_hr", lambda: _sp_hr_rank(conf["hr"], root, dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        if dev.startswith("cuda"):
+            torch.cuda.empty_cache()
+    out["seconds"] = seconds
+    torch.save(out, os.path.join(root, f"rank{dist.get_rank()}.pt"))
+
+
+def _gloo_p2p_on_cuda(device):
+    """Whether gloo sends a CUDA tensor from one rank to another (two
+    ranks started here); the pp ring stages through host memory when it
+    does not."""
+    import torch
+
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    if not str(device).startswith("cuda"):
+        return None
+    root = _axes_dir()
+    try:
+        mesh_lib.launch("chip_smoke:gloo_p2p_rank", AXES_RANKS, str(root),
+                        device="cuda:0", backend="gloo").wait(timeout=120)
+    except (RuntimeError, TimeoutError) as e:
+        return f"no: {str(e)[:200]}"
+    got = torch.load(root / "p2p.pt", weights_only=False)
+    return "yes" if got else "no: wrong values"
+
+
+def gloo_p2p_rank(root):
+    """Rank 0 sends a CUDA tensor to rank 1 over gloo; rank 1 writes
+    whether it arrived."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(8, dtype=torch.float32, device="cuda:0")
+    if dist.get_rank() == 0:
+        dist.send(x, 1)
+    else:
+        y = torch.empty_like(x)
+        dist.recv(y, 0)
+        torch.save(bool(torch.equal(x, y)), os.path.join(root, "p2p.pt"))
+
+
+def _tp_cli(c):
+    """``train_loop --tp 1 --dp 1`` (a 1 x 1 data x model mesh: NCCL,
+    world size 1) against no mesh, one epoch of the detector phases'
+    images at the tp phase's batch, cuDNN deterministic; (each run's
+    seconds, the tensors of last.pt that differ)."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from adaptiveisp_tpu_torch.detect import train_loop
+
+    root = _axes_dir()
+    runs, seconds = {}, {}
+    try:
+        for tp in (0, 1):
+            t0 = time.perf_counter()
+            save = root / f"tp_cli{tp}"
+            with contextlib.redirect_stdout(sys.stderr):
+                train_loop.main([
+                    "--data", c["data"], "--spec", TP_SPEC_NAME,
+                    "--imgsz", str(c["size"]), "--batch-size",
+                    str(c["batch"]), "--epochs", "1", "--save-dir",
+                    str(save), "--exist-ok", "--device", CARD,
+                    "--noautoanchor"] + (["--tp", "1", "--dp", "1"]
+                                         if tp else []))
+            _sync(CARD)
+            seconds[tp] = time.perf_counter() - t0
+            runs[tp] = torch.load(save / "last.pt", weights_only=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    diffs = [f"{part}.{k}" for part in ("model", "ema")
+             for k, v in runs[0][part].items()
+             if not torch.equal(v, runs[1][part][k])]
+    return seconds, diffs
+
+
+def phase_axes(smi):
+    """The parallel-axes phases (module docstring, phase 30): the
+    single-process references on the card, one launch of two gloo ranks
+    on the card (``axes_rank``), the single-process CLI runs against the
+    ranks' and ``train_loop --tp 1 --dp 1`` on NCCL.  Returns each main
+    run's launch counts by rank."""
+    import contextlib
+    import gc
+    import shutil
+
+    import torch
+    from PIL import Image
+
+    from adaptiveisp_tpu_torch import parallel, render_isp, train_isp
+    from adaptiveisp_tpu_torch import tensor_parallel as tp_lib
+    from adaptiveisp_tpu_torch.config import Config
+    from adaptiveisp_tpu_torch.data.detector_dataset import DetectorDataset
+    from adaptiveisp_tpu_torch.ops.bank import render_blend, render_pipeline
+    from adaptiveisp_tpu_torch.ops.cuda import build
+    from adaptiveisp_tpu_torch.train import mesh as mesh_lib
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    conf = _axes_conf()
+    root = Path(conf["root"])
+    for d in ("pp", "pp_single", "hr_sp", "hr_single"):
+        shutil.rmtree(root / d, ignore_errors=True)
+    torch.save(conf, root / "conf.pt")
+    t = conf["tp"]
+    torch.save(list(next(DetectorDataset(
+        t["data"], img_size=t["size"], batch_size=t["batch"], augment=False,
+        nc=t["spec"]["nc"]).epoch_batches(shuffle=False))), t["batch_file"])
+
+    # ---- the single process's runs on the card ----
+    t0 = time.perf_counter()
+    single = {}
+    with torch.no_grad():
+        cfg, frames, params = _sp_inputs(conf["sp"], CARD)
+        stages = list(zip(conf["sp"]["chain"], params))
+        render_pipeline(cfg, frames, stages, allow_fused=False)
+        _, single["sp_render_ms"] = _timed_ms(lambda: render_pipeline(
+            cfg, frames, stages, allow_fused=False), CARD)
+        del frames
+        cfg, img, params, onehot, soft = _ep_inputs(conf["ep"], CARD)
+        render_blend(cfg, img, params, onehot)
+        _, single["ep_blend_ms"] = _timed_ms(
+            lambda: render_blend(cfg, img, params, onehot), CARD)
+        del img, params
+    tr = _tp_trainer(t, CARD)
+    losses, single["tp_step_ms"] = _tp_steps(tr, t, CARD)
+    from adaptiveisp_tpu_torch import tensor_parallel as tp_lib
+
+    single["tp_bytes"] = tp_lib.state_bytes(tr.state)
+    # the single process's bytes of the tensors a 2-way model axis splits
+    two = parallel.Mesh(0, AXES_RANKS, torch.device(CARD),
+                        axis_names=(parallel.DATA_AXIS, parallel.MODEL_AXIS),
+                        shape=(1, AXES_RANKS), coords=(0, 0),
+                        groups=(None, None))
+    split = {k for k, s in tp_lib.tp_state_sharding(two, tr.model).items()
+             if s}
+    named = dict(tr.model.named_parameters())
+    single["tp_split"] = {
+        "split_params": sum(named[k].numel() * 4 for k in split
+                            if k in named),
+        "split_moments": sum(v.numel() * v.element_size() for k in split
+                             if k in named for v in
+                             tr.state.optimizer.state[named[k]].values())}
+    torch.save({"losses": losses, "model": _cpu_sd(tr.model.state_dict()),
+                "ema": _cpu_sd(tr.state.ema.params)}, t["ref_file"])
+    del tr, named
+    p = conf["pp"]
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        render_isp.main(_pp_cli_args(p, CARD, str(root / "pp_single"),
+                                     False))
+    _sync(CARD)
+    single["pp_cli_ms"] = (time.perf_counter() - t1) * 1e3
+    h = conf["hr"]
+    t1 = time.perf_counter()
+    hr_single = _hr_frames(lambda: train_isp.main(_sp_hr_args(
+        h, CARD, str(root / "hr_single"), 1)))
+    _sync(CARD)
+    single["sp_hr_ms"] = (time.perf_counter() - t1) * 1e3
+    gc.collect()
+    if CARD != "cpu":
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    # ---- the two ranks ----
+    t0 = time.perf_counter()
+    mesh_lib.launch("chip_smoke:axes_rank", AXES_RANKS, str(root),
+                    device=conf["device"], backend="gloo").wait()
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+             for r in range(AXES_RANKS)]
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2p = _gloo_p2p_on_cuda(CARD)
+    tp_cli_s, tp_cli_diffs = _tp_cli(t)
+    cli_s = time.perf_counter() - t0
+    bad = []
+
+    # ---- sp_render ----
+    sp = [r["sp_render"] for r in ranks]
+    ok = (all(s["max_abs_err"] <= SP_ATOL and s["gathered_equal"]
+              and s["launches"]["nlm_gray_fwd"] == 1 for s in sp)
+          and all(s["stage_max_abs_err"][n] == 0.0 for s in sp
+                  for n in SP_CHAIN if n not in ("ccm", "denoise")))
+    worst = max(((e, n) for s in sp
+                 for n, e in s["stage_max_abs_err"].items()), default=None)
+    emit({"phase": "sp_render", "nvidia_smi": smi, "ranks": AXES_RANKS,
+          "backend": "gloo", "frames": list(conf["sp"]["frames"]),
+          "chain": list(SP_CHAIN), "rows": [s["rows"] for s in sp],
+          "max_abs_err": [s["max_abs_err"] for s in sp],
+          "worst_stage": worst,
+          "stage_max_abs_err": [s["stage_max_abs_err"] for s in sp],
+          "launches": [s["launches"] for s in sp],
+          "ms": [s["ms"] for s in sp], "single_ms": single["sp_render_ms"],
+          "atol": SP_ATOL, "ok": ok})
+    if not ok:
+        bad.append("sp_render")
+
+    # ---- sp_hr ----
+    hr = [r["sp_hr"] for r in ranks]
+    got = hr[0]["frames"]
+    errs = {k: float(np.abs(got[k] - v).max()) for k, v in hr_single.items()
+            if k in got}
+    ok = (sorted(got) == sorted(hr_single) and bool(errs)
+          and max(errs.values()) <= SP_ATOL and not hr[1]["frames"]
+          and all(x["launches"]["nlm_gray_fwd"] > 0 for x in hr))
+    emit({"phase": "sp_hr", "ranks": AXES_RANKS,
+          "frames": len(hr_single), "frames_equal": sorted(got) == sorted(
+              hr_single), "max_abs_err": max(errs.values(), default=None),
+          "atol": SP_ATOL, "launches": [x["launches"] for x in hr],
+          "ms": [x["ms"] for x in hr], "single_ms": single["sp_hr_ms"],
+          "ok": ok})
+    if not ok:
+        bad.append("sp_hr")
+
+    # ---- ep_blend ----
+    ep = [r["ep_blend"] for r in ranks]
+    cfg = Config()
+    per_rank = cfg.n_filters // AXES_RANKS
+    owner = cfg.filters.index("denoise") // per_rank
+    ok = (all(e[w]["excess"] <= EP_ATOL for e in ep
+              for w in ("onehot", "soft"))
+          and [e["onehot"]["launches"]["nlm_gray_fwd"] for e in ep]
+          == [1 if r == owner else 0 for r in range(AXES_RANKS)])
+    emit({"phase": "ep_blend", "ranks": AXES_RANKS, "batch": EP_BATCH,
+          "size": EP_SIZE, "filters_per_rank": per_rank,
+          "denoise_rank": owner,
+          **{w: {"max_abs_err": [e[w]["max_abs_err"] for e in ep],
+                 "excess_over_rtol": [e[w]["excess"] for e in ep],
+                 "launches": [e[w]["launches"] for e in ep],
+                 "ms": [e[w]["ms"] for e in ep]}
+             for w in ("onehot", "soft")},
+          "single_ms": single["ep_blend_ms"],
+          "tolerance": {"rtol": EP_RTOL, "atol": EP_ATOL}, "ok": ok})
+    if not ok:
+        bad.append("ep_blend")
+
+    # ---- pp_cli ----
+    pp = [r["pp_cli"] for r in ranks]
+    names = sorted(os.listdir(root / "pp_single"))
+    same = names == sorted(os.listdir(root / "pp")) and all(
+        np.array_equal(np.asarray(Image.open(root / "pp" / n)),
+                       np.asarray(Image.open(root / "pp_single" / n)))
+        for n in names)
+    # a window of PP_WINDOW microbatches of PP_BATCH frames a dispatch
+    n_micro = -(-len(names) // (PP_WINDOW * PP_BATCH)) * PP_WINDOW
+    ok = (same and len(names) == SERVE_BATCH
+          and [x["launches"]["nlm_gray_fwd"] for x in pp] == [n_micro, 0])
+    emit({"phase": "pp_cli", "ranks": AXES_RANKS, "stages": list(PP_STAGES),
+          "window": PP_WINDOW, "batch": PP_BATCH, "frames": len(names),
+          "pngs_equal": same, "microbatches": n_micro,
+          "launches": [x["launches"] for x in pp],
+          "ms": [x["ms"] for x in pp], "single_ms": single["pp_cli_ms"],
+          "gloo_p2p_on_cuda": p2p, "ok": ok})
+    if not ok:
+        bad.append("pp_cli")
+
+    # ---- tp_detector ----
+    tp = [r["tp_detector"] for r in ranks]
+    r0 = tp[0]
+    half = all(x["bytes"][k] * AXES_RANKS == single["tp_split"][k]
+               for x in tp for k in ("split_params", "split_moments"))
+    ok = (half and max(r0["loss_rel_err"]) <= TP_LOSS_RTOL
+          and r0["model_excess"][0] <= DP_PARAM_ATOL
+          and r0["ema_excess"][0] <= DP_PARAM_ATOL
+          and all(x["losses"] == r0["losses"] for x in tp)
+          and not tp_cli_diffs)
+    emit({"phase": "tp_detector", "ranks": AXES_RANKS, "mesh": [1, 2],
+          "spec": TP_SPEC_NAME, "size": t["size"], "global_batch":
+          t["batch"], "steps": TP_STEPS, "losses": r0["losses"],
+          "loss_rel_err": r0["loss_rel_err"],
+          "model_excess": r0["model_excess"], "ema_excess": r0["ema_excess"],
+          "bytes": [x["bytes"] for x in tp], "single_bytes":
+          dict(single["tp_bytes"], **single["tp_split"]),
+          "split_halved": half, "ms": [x["ms"] for x in tp],
+          "single_ms": single["tp_step_ms"],
+          "cli_tp1_nccl": {"seconds": tp_cli_s, "last_pt_diffs":
+                           tp_cli_diffs[:10]},
+          "tolerance": {"loss_rtol": TP_LOSS_RTOL,
+                        "param_rtol": DP_PARAM_RTOL,
+                        "param_atol": DP_PARAM_ATOL}, "ok": ok})
+    if not ok:
+        bad.append("tp_detector")
+    emit({"phase": "axes_seconds", "references": ref_s, "ranks": ranks_s,
+          "by_rank": [r["seconds"] for r in ranks], "cli": cli_s})
+    if bad:
+        raise AssertionError(f"parallel axes: {bad}")
+    paths = {}
+    for r in range(AXES_RANKS):
+        paths[f"sp_render/rank{r}"] = sp[r]["launches"]
+        paths[f"sp_hr/rank{r}"] = hr[r]["launches"]
+        paths[f"ep_blend/rank{r}"] = ep[r]["onehot"]["launches"]
+        paths[f"pp_cli/rank{r}"] = pp[r]["launches"]
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -4636,6 +5290,7 @@ def main() -> int:
         timed("triton", phase_triton)
         timed("trace_breakdown", phase_trace_breakdown, smi)
         dp_launches = timed("dp", phase_dp, smi)
+        axes_launches = timed("axes", phase_axes, smi)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
@@ -4650,7 +5305,7 @@ def main() -> int:
                   "train_isp_val": train_isp_val, "fixed_pipeline": fixed,
                   "fixed_step_fused": fixed_fused, "rest": rest_launches,
                   "detect_cli": cli_launches, "export": export_launches,
-                  **dp_launches}
+                  **dp_launches, **axes_launches}
 
     def entry(name, counter, source, replaces, cases, err_key, paths,
               ms_key="ms"):

@@ -635,9 +635,16 @@ def test_hyp_evolution_matches_jax(tmp_path):
 def test_train_loop_cli_one_epoch(sets, tmp_path, monkeypatch):
     """``main`` on a toy hyp YAML with --device cpu: the run directory, a
     best.pt that loads as detector weights, --batch-size -1 off the card,
-    resume, --tp refused naming the next parallelism slice (P15) and
-    --dp beyond the visible cards refused."""
+    --tp 2 (two gloo ranks, each holding half of every divisible layer)
+    writing the single process's last.pt within JAX's tensor-parallel
+    bound (2e-3 relative, 2e-5 absolute), resume, and --dp beyond the
+    visible cards refused.  The ranks find a stub ``tensorflow`` (an
+    ImportError) first on the path: TensorBoard would import TensorFlow."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    stub = tmp_path / "stub" / "tensorflow"
+    stub.mkdir(parents=True)
+    (stub / "__init__.py").write_text("raise ImportError('not here')\n")
+    monkeypatch.syspath_prepend(str(stub.parent))
     hyp_yaml = tmp_path / "hyp.yaml"
     hyp_yaml.write_text("lr0: 0.02\nmosaic: 0.5\nwarmup_epochs: 0.5\n")
     save = str(tmp_path / "run")
@@ -655,10 +662,20 @@ def test_train_loop_cli_one_epoch(sets, tmp_path, monkeypatch):
     spec = dict(resolve_spec("yolov3-tiny"), nc=2)
     DetectionModel(spec).load_state_dict(
         load_yolo_weights(os.path.join(save, "best.pt"), spec))
+    tp_save = str(tmp_path / "run_tp")
+    tp_args = [a if a != save else tp_save for a in args]
+    assert tl.main(tp_args + ["--batch-size", "16", "--tp", "2"]) is None
+    want, got = (torch.load(os.path.join(d, "last.pt"), weights_only=False)
+                 for d in (save, tp_save))
+    assert got["epoch"] == want["epoch"] == 0
+    for part in ("model", "ema"):
+        assert set(got[part]) == set(want[part])
+        for k, v in want[part].items():
+            np.testing.assert_allclose(got[part][k].numpy(), v.numpy(),
+                                       rtol=2e-3, atol=2e-5,
+                                       err_msg=f"{part} {k}")
     again = tl.main(args + ["--batch-size", "8", "--epochs", "2",
                             "--resume", os.path.join(save, "last.pt")])
     assert [h.epoch for h in again] == [1]
-    with pytest.raises(SystemExit, match="P15"):
-        tl.main(args + ["--tp", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         tl.main(args + ["--dp", "2", "--device", "cuda"])

@@ -429,6 +429,8 @@ def test_run_hr_validation_matches_jax(stack, tmp_path, monkeypatch):
 
 
 def test_train_isp_task_val_writes_hr_frames(stack, tmp_path, monkeypatch):
+    from adaptiveisp_tpu_torch.obs.logging import save_img as real_save_img
+
     frames_t = _capture_frames(monkeypatch, hr_render)
     train_isp.main(["--task", "val", "--data_cfg", stack["yaml"],
                     "--model_weights", stack["pkl"], "--cfg", FAST_CFG,
@@ -437,9 +439,19 @@ def test_train_isp_task_val_writes_hr_frames(stack, tmp_path, monkeypatch):
     assert len(frames_t) == 3 * 6
     assert all(frames_t[f"step-1/{i}.png"].shape == (64, 64, 3)
                for i in range(6))
-    with pytest.raises(SystemExit, match="P15"):
-        train_isp.main(["--task", "val", "--data_cfg", stack["yaml"],
-                        "--spatial_shard", "2", "--device", "cpu"])
+    # --spatial_shard 2: two gloo ranks, each frame's rows split between
+    # them with halos; rank 0 writes the same PNGs
+    assert train_isp.main([
+        "--task", "val", "--data_cfg", stack["yaml"], "--model_weights",
+        stack["pkl"], "--cfg", FAST_CFG, "--imgsz", "64", "--steps", "2",
+        "--device", "cpu", "--spatial_shard", "2",
+        "--val_save_path", str(tmp_path / "sp")]) is None
+    for name, want in frames_t.items():
+        os.makedirs(os.path.dirname(tmp_path / "png" / name), exist_ok=True)
+        real_save_img(want, str(tmp_path / "png" / name))
+        with Image.open(tmp_path / "sp" / "val-images" / name) as got, \
+                Image.open(tmp_path / "png" / name) as ref:
+            assert np.array_equal(np.asarray(got), np.asarray(ref)), name
 
 
 def test_val_isp_flags_match_root():

@@ -4,7 +4,8 @@ parsing and config errors, and the port's independence from JAX.
 
 The CLI saves 8-bit PNGs floored from [0, 1] (``save_img``), so a saved
 pixel is within 1/255 of the rendered value, as in
-``tests/test_render_cli.py``.
+``tests/test_render_cli.py``.  ``--pipe 2`` (two gloo ranks) writes the
+PNGs of ``--pipe 0``.
 """
 
 import os
@@ -115,11 +116,40 @@ def test_render_cli_matches_jax_render(tmp_path):
             assert np.abs(want - g).max() <= PNG_ATOL, label
 
 
+def test_render_cli_pipe_equals_single_process(tmp_path):
+    """``render_isp --pipe 2 --window 4 --device cpu`` (two gloo ranks,
+    a chain with denoise, 6 frames in microbatches of 2) writes the PNGs
+    of ``--pipe 0``; a stage count that differs from --pipe is refused."""
+    rng = np.random.RandomState(4)
+    src = tmp_path / "imgs"
+    src.mkdir()
+    for i in range(6):
+        Image.fromarray((rng.rand(24, 40, 3) * 255).astype(np.uint8)).save(
+            src / f"im{i}.png")
+    stages = ["--stage", "exposure:0.3", "--stage", "denoise:0.4"]
+    common = ["--source", str(src), "--device", "cpu", "--exist-ok",
+              *stages]
+    single = render_isp.main(common + ["--out", str(tmp_path / "single"),
+                                       "--batch", "2"])
+    assert render_isp.main(common + [
+        "--out", str(tmp_path / "pipe"), "--pipe", "2", "--window", "4",
+        "--batch", "2"]) is None
+    names = sorted(os.listdir(single))
+    assert names == sorted(os.listdir(tmp_path / "pipe")) and len(names) == 6
+    for n in names:
+        with Image.open(os.path.join(single, n)) as a, \
+                Image.open(tmp_path / "pipe" / n) as b:
+            assert np.array_equal(np.asarray(a), np.asarray(b)), n
+    with pytest.raises(SystemExit):
+        render_isp.main(common + ["--out", str(tmp_path / "bad"),
+                                  "--pipe", "3"])
+
+
 def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter, pulls in
-    neither jax nor any module of the JAX package.  The only refusals that
-    still name the parallelism queue (P15) are tensor parallelism and a
-    frame spread over devices."""
+    neither jax nor any module of the JAX package, and no module refuses
+    a parallel axis naming the parallelism queue (P15): sp, ep, pp and tp
+    are ported."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import adaptiveisp_tpu_torch as p\n"
@@ -138,7 +168,7 @@ def test_port_imports_no_jax():
         "'detect.segment', 'data.segment_dataset', 'classify', "
         "'detect.export', 'detect.export_tf', 'export_cli', "
         "'serve.triton', 'obs.roofline', 'obs.trace', 'train.mesh', "
-        "'parallel')}\n"
+        "'parallel', 'tensor_parallel', 'ops.ep', 'ops.pp')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -153,5 +183,4 @@ def test_port_imports_no_jax():
         for d, _, files in os.walk(port) for f in files
         if f.endswith(".py")
         and "P15" in open(os.path.join(d, f)).read())
-    assert refusals == ["detect/train_loop.py", "eval/hr_render.py"], \
-        refusals
+    assert refusals == [], refusals
