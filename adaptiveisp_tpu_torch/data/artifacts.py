@@ -42,6 +42,17 @@ def is_url(s, check: bool = False) -> bool:
         return False
 
 
+def url_getsize(url: str) -> int:
+    """Downloadable size in bytes, -1 if unknown (reference
+    downloads.py:33-36): a HEAD request's content-length."""
+    req = urllib.request.Request(url, method="HEAD")
+    try:
+        with urllib.request.urlopen(req) as resp:
+            return int(resp.headers.get("content-length", -1))
+    except Exception:
+        return -1
+
+
 def safe_download(file, url: str, url2: Optional[str] = None,
                   min_bytes: float = 1.0, retries: int = 3,
                   error_msg: str = "") -> str:

@@ -11,9 +11,10 @@ and ``high_res``, which adds ``im_hr``: the max-side-capped frame before the
 letterbox, for rendering at full resolution.  ``split`` cuts one file list
 into train and validation views.  ``cache_images`` ("ram" or "disk") keeps
 the decoded, resized images (:mod:`.image_cache`).
-:class:`BatchFeeder` walks the dataset in shuffled epochs behind a
-:class:`~adaptiveisp_tpu_torch.data.prefetch.Prefetcher` thread, or a
-per-host strided slice of them (``shard_rank`` / ``shard_count``).
+:class:`BatchFeeder` walks the dataset in shuffled epochs (or in order)
+behind a :class:`~adaptiveisp_tpu_torch.data.prefetch.Prefetcher` thread
+(or synchronously), or a per-host strided slice of them (``shard_rank`` /
+``shard_count``).
 
 Images load via PIL; pixels leave as NHWC float32 in [0, 1].  The random
 draws (the dataset's ``rng``, the feeder's ``RandomState(seed)``) are the
@@ -42,25 +43,29 @@ from adaptiveisp_tpu_torch.data.sources import (
 )
 from adaptiveisp_tpu_torch.detect.boxes import xywhn2xyxy, xyxy2xywhn
 
-# get_batch decodes images on a small thread pool (PIL decode and the native
-# csrc resize release the GIL, so the pool scales with host cores; on a
-# 1-core host it is a wash, never a loss); the random unprocess draws stay
-# SERIAL in index order so the host-twin draw-order parity (data/raw_np.py)
-# holds
-DECODE_THREADS = 4
 
 class ISPDataset:
-    """File-list dataset with letterbox + label transform parity."""
+    """File-list dataset with letterbox + label transform parity.
+
+    ``augment`` lets the letterbox enlarge a small image (its ``scaleup``);
+    ``cache_labels=False`` reads and writes no label ``.cache`` file;
+    ``decode_threads``: ``get_batch`` decodes on a pool of this many
+    threads (PIL decode and the native resize release the GIL), 1 decodes
+    serially; the random unprocess draws stay serial in index order either
+    way, so the host-twin draw order (data/raw_np.py) holds."""
 
     def __init__(self, path: str, img_size: int = 512, source: str = "raw",
-                 high_res: bool = False, add_noise: bool = False,
-                 brightness_range=None, noise_level=None,
-                 use_linear: bool = False, limit: int = -1,
-                 train: bool = True, seed: int = 0, cache_images=None,
-                 cache_threads: int = 8):
+                 high_res: bool = False, augment: bool = False,
+                 add_noise: bool = False, brightness_range=None,
+                 noise_level=None, use_linear: bool = False,
+                 limit: int = -1, train: bool = True,
+                 cache_labels: bool = True, cache_images=None,
+                 cache_threads: int = 8, seed: int = 0,
+                 decode_threads: int = 4):
         self.img_size = img_size
         self.source = source
         self.high_res = high_res
+        self.augment = augment
         self.add_noise = add_noise
         self.brightness_range = brightness_range
         self.noise_level = noise_level
@@ -69,6 +74,7 @@ class ISPDataset:
         # train-mode unprocess randomness: a dataset-local stream, not the
         # global np.random (which a prefetching thread would share)
         self.rng = np.random.RandomState(seed)
+        self.decode_threads = decode_threads
         self._preload: dict = {}
 
         self.im_files = parse_image_list(path)
@@ -80,7 +86,8 @@ class ISPDataset:
         self.label_files = label_fn(self.im_files)
         cache = os.path.join(
             os.path.dirname(self.label_files[0]) or ".",
-            f".adaptiveisp_labels_{len(self.im_files)}.cache")
+            f".adaptiveisp_labels_{len(self.im_files)}.cache"
+        ) if cache_labels else None
         self.labels = load_labels(self.im_files, self.label_files, cache)
         # positions -> file indices (a subset view after split())
         self.indices = np.arange(len(self.im_files))
@@ -156,7 +163,8 @@ class ISPDataset:
         # "normalize": already /255 from the loader
 
         full_res = img if self.high_res else None
-        img, ratio, pad = letterbox(img, self.img_size, scaleup=False)
+        img, ratio, pad = letterbox(img, self.img_size, color=(0, 0, 0),
+                                    auto=False, scaleup=self.augment)
         shapes = (h0, w0), ((h / h0, w / w0), pad)
 
         labels = self.labels[index].copy()
@@ -183,10 +191,12 @@ class ISPDataset:
     # ---------------------------------------------------------------- #
     def get_batch(self, indices: List[int]):
         uniq = list(dict.fromkeys(int(self.indices[i]) for i in indices))
-        if len(uniq) > 1 and self.cache.mode != "ram":
+        if (self.decode_threads > 1 and len(uniq) > 1
+                and self.cache.mode != "ram"):
             from concurrent.futures import ThreadPoolExecutor
 
-            with ThreadPoolExecutor(min(DECODE_THREADS, len(uniq))) as ex:
+            with ThreadPoolExecutor(min(self.decode_threads,
+                                        len(uniq))) as ex:
                 loaded = list(ex.map(self._load_one, uniq))
             # entries are POPPED on use: duplicate positions re-load their
             # own copy, so no two records share a mutable array
@@ -237,24 +247,30 @@ class BatchFeeder:
     prefetch thread (util.py:153-201 equivalent)."""
 
     def __init__(self, dataset: ISPDataset, batch_size: int = 64,
+                 shuffle: bool = True, prefetch: bool = True,
                  seed: int = 0, shard_rank: int = 0, shard_count: int = 1):
-        """shard_rank / shard_count: per-host sharding (DistributedSampler's
+        """shuffle=False walks every epoch in index order; prefetch=False
+        starts no thread, and ``next_batch`` decodes when called.
+        shard_rank / shard_count: per-host sharding (DistributedSampler's
         role): each host reads a disjoint strided slice of the epoch order,
         shuffled with the same seed on every host.  API parity with the
         JAX package: no trainer of the port passes them (a data-parallel
         trainer reads the global batch and keeps its rows)."""
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.shard_rank = shard_rank
         self.shard_count = shard_count
         self.rng = np.random.RandomState(seed)
         self._order = self._new_order()
         self._cursor = 0
-        self._prefetcher = Prefetcher(self._next_batch_sync)
+        self._prefetcher = (Prefetcher(self._next_batch_sync) if prefetch
+                            else None)
 
     def _new_order(self):
         order = np.arange(len(self.dataset))
-        self.rng.shuffle(order)
+        if self.shuffle:
+            self.rng.shuffle(order)
         if self.shard_count > 1:
             # the ragged tail goes first, so every host's slice has one
             # length and the hosts start the next permutation together
@@ -276,7 +292,10 @@ class BatchFeeder:
         return self.dataset.get_batch(self._next_indices(self.batch_size))
 
     def next_batch(self):
-        return self._prefetcher.get_next()
+        if self._prefetcher is not None:
+            return self._prefetcher.get_next()
+        return self._next_batch_sync()
 
     def stop(self):
-        self._prefetcher.stop()
+        if self._prefetcher is not None:
+            self._prefetcher.stop()

@@ -1,4 +1,4 @@
-"""Letterbox resize, host-side NumPy (port of
+"""Letterbox resize and its inverse, host-side NumPy (port of
 ``adaptiveisp_tpu/data/letterbox.py``).
 
 The resize is cv2's ``INTER_LINEAR`` (half-pixel centres): the port's own
@@ -45,13 +45,16 @@ def resize_bilinear(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return top * (1 - wy) + bot * wy
 
 
-def letterbox(im: np.ndarray, new_shape=(640, 640), scaleup: bool = True,
-              color=(0.0, 0.0, 0.0)
+def letterbox(im: np.ndarray, new_shape=(640, 640), color=(0, 0, 0),
+              auto: bool = False, scale_fill: bool = False,
+              scaleup: bool = True, stride: int = 32
               ) -> Tuple[np.ndarray, Tuple[float, float], Tuple[float, float]]:
-    """Resize + pad to `new_shape` keeping aspect: the reference's letterbox
-    (:111-143) with auto=False.  Borders are ``color``: black as the ISP
-    datasets call it (reference dataset.py:616), 114/255 grey in the
-    detector dataset.
+    """Resize + pad to `new_shape` keeping aspect (the reference's
+    letterbox, augmentations.py:111-143).  Borders are ``color``: black as
+    the ISP datasets call it (reference dataset.py:616), 114/255 grey in the
+    detector dataset.  ``auto`` pads only to the next multiple of
+    ``stride``; ``scale_fill`` stretches to ``new_shape`` with no padding
+    (a ratio per axis); ``scaleup=False`` never enlarges.
 
     Returns (image, (rw, rh), (dw, dh)).
     """
@@ -67,6 +70,13 @@ def letterbox(im: np.ndarray, new_shape=(640, 640), scaleup: bool = True,
     new_unpad = (int(round(shape[1] * r)), int(round(shape[0] * r)))  # w, h
     dw = new_shape[1] - new_unpad[0]
     dh = new_shape[0] - new_unpad[1]
+    if auto:
+        dw, dh = dw % stride, dh % stride
+    elif scale_fill:
+        dw, dh = 0.0, 0.0
+        new_unpad = (new_shape[1], new_shape[0])
+        ratio = (new_shape[1] / shape[1], new_shape[0] / shape[0])
+
     dw /= 2
     dh /= 2
 
@@ -86,3 +96,16 @@ def letterbox(im: np.ndarray, new_shape=(640, 640), scaleup: bool = True,
     out[top:top + im.shape[0], left:left + im.shape[1]] = im
     return out, ratio, (dw, dh)
 
+
+
+def restore_image(img: np.ndarray, orig_h: int, orig_w: int) -> np.ndarray:
+    """Undo :func:`letterbox`: crop the padding and resize back to the
+    original shape (reference dataset.py:1651-1666)."""
+    h, w = img.shape[:2]
+    r = min(h / orig_h, w / orig_w)
+    new_unpad = (int(round(orig_w * r)), int(round(orig_h * r)))
+    dw = (w - new_unpad[0]) / 2
+    dh = (h - new_unpad[1]) / 2
+    top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+    crop = img[top:top + new_unpad[1], left:left + new_unpad[0]]
+    return resize_bilinear(crop, orig_h, orig_w)

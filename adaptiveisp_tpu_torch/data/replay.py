@@ -30,17 +30,21 @@ from adaptiveisp_tpu_torch.policy.states import (
 
 class ReplayMemory:
     def __init__(self, cfg, dataset: ISPDataset, batch_size: int,
-                 feeder_batch: int = 64, seed: int = 0):
+                 load: bool = True, feeder_batch: int = 64, seed: int = 0,
+                 prefetch: bool = True):
+        """load=False leaves the pool empty until the first sample (or
+        ``fill_pool``); prefetch is the feeder's."""
         self.cfg = cfg
         self.dataset = dataset
         self.batch_size = batch_size
         self.feeder = BatchFeeder(dataset, batch_size=feeder_batch,
-                                  seed=seed)
+                                  prefetch=prefetch, seed=seed)
         self.pool: List[Dict] = []
         self.target_pool_size = cfg.replay_memory_size
         self.rng = np.random.RandomState(seed + 1)
         self._py_rng = random.Random(seed + 2)
-        self.fill_pool()
+        if load:
+            self.fill_pool()
 
     # ------------------------------------------------------------------ #
     def fill_pool(self):

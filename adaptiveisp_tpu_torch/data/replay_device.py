@@ -51,8 +51,10 @@ from adaptiveisp_tpu_torch.policy.states import (
 class DeviceReplayMemory:
     def __init__(self, cfg, dataset: ISPDataset, batch_size: int,
                  feeder_batch: int = 32, seed: int = 0,
-                 device="cuda", loss_fn=None, mesh=None):
-        """loss_fn (optional): callable(images [n, H, W, 3] tensor on the
+                 prefetch: bool = True, mesh=None, loss_fn=None,
+                 device="cuda"):
+        """prefetch is the feeder's.
+        loss_fn (optional): callable(images [n, H, W, 3] tensor on the
         device, labels list) -> [n, 1] detector input losses on the device.
         When given, the pool caches each slot's loss: the detector is
         frozen, so a write-back's retouch loss is the next sample's input
@@ -71,7 +73,7 @@ class DeviceReplayMemory:
         # this rank's slots [lo, lo + shard_size)
         self.lo = 0 if mesh is None else mesh.data_rank * self.shard_size
         self.feeder = BatchFeeder(dataset, batch_size=feeder_batch,
-                                  seed=seed)
+                                  prefetch=prefetch, seed=seed)
         self.rng = np.random.RandomState(seed + 1)
         self._py_rng = random.Random(seed + 2)
         self._fresh_queue: List = []  # decoded-but-unused feeder leftovers

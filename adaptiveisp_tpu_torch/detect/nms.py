@@ -7,7 +7,7 @@ Same semantics and defaults as the JAX version, batched over images:
     are kept, equal scores going to the lower index (a stable sort; the JAX
     version's top-k leaves their order unspecified);
   * boxes are offset by class * MAX_WH so classes never overlap;
-  * blocked greedy suppression: score-sorted rows in blocks of ``BLOCK``;
+  * blocked greedy suppression: score-sorted rows in blocks of ``block``;
     each block is resolved by a Jacobi fixpoint (exactly greedy, since the
     suppression graph only points to earlier rows), then its kept boxes
     suppress every later row.  An image stops once ``max_det`` boxes are
@@ -27,7 +27,6 @@ import torch.nn.functional as F
 from adaptiveisp_tpu_torch.detect.boxes import box_iou, xywh2xyxy
 
 MAX_WH = 7680.0
-BLOCK = 512  # rows per greedy block, as the JAX default
 
 
 def _top_k(scores, k: int):
@@ -47,12 +46,14 @@ def _take(x, idx):
 def non_max_suppression(prediction, conf_thres: float = 0.25,
                         iou_thres: float = 0.45, max_det: int = 300,
                         max_nms: int = 4096, multi_label: bool = False,
-                        agnostic: bool = False, classes=None,
-                        merge: bool = False, nm: int = 0):
+                        agnostic: bool = False, block: int = 512,
+                        nm: int = 0, merge: bool = False, classes=None):
     """prediction: [N, n_boxes, 5 + nc (+ nm)] decoded (xywh, obj, class
     probs, and with nm > 0 the raw mask coefficients of a segmentation
     head).
 
+    ``block``: rows per greedy block (the result does not depend on it;
+    a smaller block stops earlier once ``max_det`` boxes are kept).
     ``classes`` (sequence of class ids) keeps only those classes: in the
     multi-label path disallowed pairs score 0; in the single-label path a
     row whose best class is filtered is dropped.
@@ -107,7 +108,7 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
     off_boxes = top_boxes + offset[..., None]
 
     # ---- blocked greedy suppression over score-sorted rows ----
-    bsz = min(BLOCK, k)
+    bsz = min(block, k)
     nb = -(-k // bsz)
     kp = nb * bsz
     boxes_p = F.pad(off_boxes, (0, 0, 0, kp - k))

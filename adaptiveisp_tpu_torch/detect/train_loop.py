@@ -18,8 +18,11 @@ others rise from 0, and SGD's momentum rises from ``warmup_momentum``;
 Multi-scale draws from the stride-multiple sizes of 0.75, 1 and 1.25 times
 the image size.  Checkpoints are ``torch.save`` dicts with the JAX
 package's fields and ultralytics state-dict keys, plus the data streams'
-random states so that a resume repeats the epochs it continues.  Runs on
-``--device`` (``cuda`` by default).
+random states so that a resume repeats the epochs it continues
+(``--deterministic`` pins the card's math too: cuDNN's deterministic
+algorithms and no TF32, as a relaunch by
+:mod:`adaptiveisp_tpu_torch.resume_all` in a fresh process needs).  Runs
+on ``--device`` (``cuda`` by default).
 """
 
 from __future__ import annotations
@@ -680,7 +683,27 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="last.pt checkpoint to continue from (restores "
                         "optimizer / EMA / epoch / data streams)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--deterministic", action="store_true",
+                   help="pin the card's math: cuDNN's deterministic "
+                        "algorithms, no autotuning, no TF32, so that a "
+                        "resumed run repeats the uninterrupted one bit for "
+                        "bit in any process")
     args = p.parse_args(argv)
+    if not args.deterministic:
+        return _run(args, argv)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             matmul.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:   # pinned for this run only: an in-process caller gets its own back
+        return _run(args, argv)
+    finally:
+        (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+         matmul.allow_tf32) = saved
+
+
+def _run(args, argv):
     mesh, launched = parallel.cli_mesh(
         args.dp, args.device, "adaptiveisp_tpu_torch.detect.train_loop:main",
         argv, n_axis=args.tp, axis=parallel.MODEL_AXIS)

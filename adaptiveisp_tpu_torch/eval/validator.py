@@ -45,7 +45,7 @@ from adaptiveisp_tpu_torch.eval import coco_json
 from adaptiveisp_tpu_torch.eval.rollout import no_pipeline, rollout
 from adaptiveisp_tpu_torch.obs.logging import save_img
 from adaptiveisp_tpu_torch.obs.profile import Profile, speed_report
-from adaptiveisp_tpu_torch.ops.bank import filter_specs, param_offsets
+from adaptiveisp_tpu_torch.ops.bank import param_offsets, short_names
 from adaptiveisp_tpu_torch.policy.states import get_initial_states, get_noise
 from adaptiveisp_tpu_torch.parallel import all_gather, data_sharding
 
@@ -112,7 +112,7 @@ def run_validation(cfg, agent, yolo, dataset: ISPDataset, steps: int = 5,
     dev = next(agent.parameters()).device
     spec = yolo_spec or yolo.spec
     iouv = np.linspace(0.5, 0.95, 10)
-    names = [s.short_name for s in filter_specs(cfg)]
+    names = short_names(cfg)
     rng = np.random.RandomState(noise_seed)
     pipe = (no_pipeline(steps) if pipeline is None
             else [-1 if p is None else int(p) for p in pipeline])

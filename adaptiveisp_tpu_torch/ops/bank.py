@@ -94,13 +94,21 @@ def get_spec(cfg, name: str) -> FilterSpec:
     return _resolve(cfg, REGISTRY[name])
 
 
+def short_names(cfg) -> Tuple[str, ...]:
+    return tuple(s.short_name for s in filter_specs(cfg))
+
+
+def param_counts(cfg) -> Tuple[int, ...]:
+    return tuple(s.n_params for s in filter_specs(cfg))
+
+
 def param_offsets(cfg) -> Tuple[Tuple[int, int], ...]:
     """(start, end) slices of each filter's params in the concatenated
     per-step parameter vector."""
     out, total = [], 0
-    for s in filter_specs(cfg):
-        out.append((total, total + s.n_params))
-        total += s.n_params
+    for n in param_counts(cfg):
+        out.append((total, total + n))
+        total += n
     return tuple(out)
 
 

@@ -6,6 +6,13 @@ shifts with a separable 5x5 box sum, the JAX package's eager chain.  With
 CUDA kernels in :mod:`adaptiveisp_tpu_torch.ops.cuda.nlm`;
 :func:`nlm_gray_dispatch` picks between the two by the tensor's device.
 
+The reference's other two variants are plain PyTorch here, as they are
+plain XLA in the JAX package: :func:`nlm_rgb` (``NonLocalMeans``: RGB
+distances, circular boundaries) and :func:`nlm_param` (``NonLocalMeansParam``:
+reflect boundaries, one learnable strength).  Both walk their offsets one
+search row at a time, each row under activation checkpointing when a
+gradient is wanted, so memory stays a few images whatever the window.
+
 All tensors are NHWC float32 in [0, 1]; ``h`` (filter strength) is [N, 1].
 """
 
@@ -33,6 +40,10 @@ def box_sum(x, window_size: int):
     for dx in range(-r, r + 1):
         out = out + torch.roll(row, dx, dims=2)
     return out
+
+
+def box_mean(x, window_size: int):
+    return box_sum(x, window_size) / float(window_size * window_size)
 
 
 def _safe_sqrt(x):
@@ -159,3 +170,111 @@ def nlm_gray_dispatch(rgb, h, gate=None):
     return nlm_gray_k(rgb.contiguous(),
                       h.to(torch.float32).expand(n, 1).contiguous(),
                       canon_gate(gate, n, rgb.device))
+
+
+def _by_rows(row_fn, n_rows: int, acc, *args):
+    """acc = row_fn(r, *acc, *args) for r in range(n_rows): a search
+    window's offsets one row at a time, accumulated in order.  With a
+    gradient wanted each row is recomputed in the backward (checkpointing),
+    so only the accumulators are kept between rows."""
+    from torch.utils.checkpoint import checkpoint
+
+    grad = torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in acc + args)
+    for r in range(n_rows):
+        acc = (checkpoint(row_fn, r, *acc, *args, use_reentrant=False)
+               if grad else row_fn(r, *acc, *args))
+    return acc
+
+
+def _pad_reflect(x, pad: int):
+    """NHWC ``x`` padded by ``pad`` on H and W with numpy's (and
+    ``jnp.pad``'s) ``reflect`` mode, repeated reflection included."""
+    for dim in (1, 2):
+        n = x.shape[dim]
+        i = torch.arange(-pad, n + pad, device=x.device)
+        if n == 1:
+            i = torch.zeros_like(i)
+        else:
+            period = 2 * (n - 1)
+            i = torch.remainder(i, period)
+            i = torch.where(i >= n, period - i, i)
+        x = torch.index_select(x, dim, i)
+    return x
+
+
+def _box_sum_reflect(x, window_size: int):
+    """Box sum over H, W with a REFLECT boundary (the unfold variant's,
+    reference denoise.py:150-153): pad once, then ``window_size`` row
+    slices and as many column slices, in the JAX package's order."""
+    pad = (window_size - 1) // 2
+    h, w = x.shape[1], x.shape[2]
+    xp = _pad_reflect(x, pad)
+    row = xp[:, 0:h]
+    for i in range(1, window_size):
+        row = row + xp[:, i:i + h]
+    out = row[:, :, 0:w]
+    for j in range(1, window_size):
+        out = out + row[:, :, j:j + w]
+    return out
+
+
+def nlm_param(rgb, h, search_window_size: int = 21):
+    """Learnable-strength unfold NLM (reference NonLocalMeansParam,
+    denoise.py:122-181), as the JAX package's:
+      * REFLECT boundaries, not circular rolls;
+      * each offset's squared luminance difference is aggregated over the
+        whole *search* window (the reference's second ``unfold``), not a
+        patch;
+      * ``h`` is one strength (a scalar or [1] tensor, which may require
+        a gradient: an optimizer owns it).
+
+    rgb: [N, H, W, 3].  Returns [N, H, W, 3] in [0, 1].  JAX stacks all
+    ws^2 offsets ([N, H, W, 441] at ws 21); here each search row's ws
+    offsets are stacked and reduced before the next row.
+    """
+    ws = search_window_size
+    pad = (ws - 1) // 2
+    height, width = rgb.shape[1], rgb.shape[2]
+    y = rgb_to_luminance(rgb)
+    y_pad = _pad_reflect(y, pad)
+    rgb_pad = _pad_reflect(rgb, pad)
+    hh = clip(torch.as_tensor(h, dtype=rgb.dtype, device=rgb.device)
+              .reshape(()), 0.0) + EPS
+
+    def row(dy, denoised, weights, y, y_pad, rgb_pad, hh):
+        dis0 = torch.cat([(y - y_pad[:, dy:dy + height, dx:dx + width]) ** 2
+                          for dx in range(ws)], dim=-1)        # [N,H,W,ws]
+        w = torch.exp(-_safe_sqrt(_box_sum_reflect(dis0, ws)) / hh)
+        for dx in range(ws):
+            denoised = denoised + (
+                w[..., dx:dx + 1] * rgb_pad[:, dy:dy + height, dx:dx + width])
+        return denoised, weights + w.sum(-1, keepdim=True)
+
+    denoised, weights = _by_rows(
+        row, ws, (torch.zeros_like(rgb), torch.zeros_like(y)),
+        y, y_pad, rgb_pad, hh)
+    return clip(denoised / weights, 0.0, 1.0)
+
+
+def nlm_rgb(rgb, h, search_window_size: int = 21, patch_size: int = 7):
+    """RGB-distance non-local means (reference NonLocalMeans, :68-90):
+    circular boundaries, each channel weighted by its own patch distance.
+    rgb: [N, H, W, 3]; h: [N, 1]."""
+    r = search_window_size // 2
+    hh = clip(h, 0.0)[:, None, None, :] + EPS
+
+    def row(i, denoised, weights, rgb, hh):
+        dx = i - r
+        for dy in range(-r, r + 1):
+            shifted = torch.roll(rgb, (dy, dx), dims=(1, 2))
+            w = torch.exp(-_safe_sqrt(box_sum((rgb - shifted) ** 2,
+                                              patch_size)) / hh)
+            denoised = denoised + shifted * w
+            weights = weights + w
+        return denoised, weights
+
+    denoised, weights = _by_rows(
+        row, 2 * r + 1, (torch.zeros_like(rgb), torch.zeros_like(rgb)),
+        rgb, hh)
+    return clip(denoised / weights, 0.0, 1.0)

@@ -42,7 +42,7 @@ from adaptiveisp_tpu_torch.detect.model import anchors_in_grid_units
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
 from adaptiveisp_tpu_torch.eval.rollout import no_pipeline, rollout
 from adaptiveisp_tpu_torch.obs.logging import MetricWriter, save_img
-from adaptiveisp_tpu_torch.ops.bank import filter_specs
+from adaptiveisp_tpu_torch.ops.bank import short_names
 from adaptiveisp_tpu_torch.policy.states import get_initial_states
 from adaptiveisp_tpu_torch.train import checkpoint as ckpt_lib
 from adaptiveisp_tpu_torch.train import mesh as mesh_lib
@@ -194,7 +194,7 @@ class Trainer:
             self.train_step = mesh_lib.shard_train_step(self.train_step, mesh)
         self.state = init_train_state(self.agent, self.value, agent_tx,
                                       value_tx)
-        self.filter_names = [s.short_name for s in filter_specs(cfg)]
+        self.filter_names = short_names(cfg)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(tcfg.seed + 7)
         # per-iteration scalars (reward, losses)

@@ -54,11 +54,11 @@ Phases, each printing one JSON line:
      512 x 512 images with cached rewards, batch 8, the full YOLOv3 reward
      detector in bf16, seeded random weights, on 64 seeded PNGs with 2-5
      boxes each under ``build/train_smoke`` (a data YAML, source
-     ``normalize``, 8 validation images); 3 warm-up then 20 timed
+     ``normalize``, 8 validation images); 3 warm-up then 10 timed
      iterations (checkpoints and validation trajectories every 10), each
      split by CUDA events into sample, the step's phases and write-back,
-     launch counts read around the 20 (one K1 and one K2 an iteration, ten
-     K1 a validation); the automatic checkpoint at step 20 on disk; the
+     launch counts read around the 10 (one K1 and one K2 an iteration, ten
+     K1 a validation); the automatic checkpoint at step 10 on disk; the
      final state saved and resumed into a second Trainer, equal to it bit
      for bit; then ``train_isp.main`` for 2 iterations with the device pool
      and with the host pool;
@@ -89,17 +89,17 @@ Phases, each printing one JSON line:
      341 x 512) on the card and the CPU, frames before PNG quantisation
      within 1e-4; then ``train_isp.main(["--task", "val", ...])``;
  13. fixed_pipeline: ``optimize_fixed_pipeline`` over exposure -> denoise
-     -> gamma -> sharpen, full YOLOv3, 12 steps at batch 8 @ 512 (K1 and K2
+     -> gamma -> sharpen, full YOLOv3, 6 steps at batch 8 @ 512 (K1 and K2
      each step) with the step timed alone; the same optimisation at 512
-     px cut to 3 steps at batch 2 on the card and the CPU (history, raw
+     px cut to 2 steps at batch 2 on the card and the CPU (history, raw
      and squashed parameters within 1e-3); one ``make_fixed_pipeline_step``
      on the 5-stage chain with the fused render (K4 forward, its gradient
      through the plain chain) against ``allow_fused=False``;
  14. detector_train: detector training at full width through
      ``detect.train_loop.DetectorTrainer``: full YOLOv3 (61.9 M parameters,
      80 classes), 640 px, batch 16, f32, the default hyp (mosaic, HSV,
-     flips, perspective) on 32 seeded synthetic-shapes PNGs under
-     ``build/det_smoke`` (16 more for validation), 2 epochs of 2 steps with
+     flips, perspective) on 16 of 32 seeded synthetic-shapes PNGs under
+     ``build/det_smoke`` (16 more for validation), 2 epochs of 1 step with
      validation and checkpoints each epoch; step ms (CUDA events, the
      optimizer update and the EMA apart), images/s, the host's data ms per
      batch against the step's device ms and the busy share, validation and
@@ -112,8 +112,9 @@ Phases, each printing one JSON line:
      tolerances its docstring states and justifies, with how far the
      parameters moved;
  16. detector_cli: ``detect.train_loop.main --spec yolov3 --imgsz 640
-     --batch-size -1 --epochs 1`` on the same images (autobatch's choice
-     printed), and its best.pt as ``val_isp --weights`` on 4 images;
+     --batch-size -1 --epochs 2 --save-period 1 --deterministic`` on the
+     32 images (autobatch's choice printed), validated on the 16, and its
+     best.pt as ``val_isp --weights`` on 4 images;
  17. hub: ``api.yolov3()``, ``api.yolov3_spp()`` and ``api.yolov5s()`` on
      the card at 640 px with ``spread_detector_state`` weights (seeded;
      a fresh detector's scores all sit near 0.25), each forward's decoded
@@ -140,27 +141,27 @@ Phases, each printing one JSON line:
      ``build/seg_smoke`` with box + mask validation on 16 more; step ms
      (CUDA events), the host's data ms a batch, busy share, peak memory,
      box and mask mAP;
- 22. segment_vs_cpu: the same spec at batch 2 @ 128 px, three train steps
+ 22. segment_vs_cpu: the same spec at batch 2 @ 128 px, two train steps
      on the card and on the CPU from one state (loss, parameters, EMA);
  23. segment_cli: the predict CLI (``--spec yolov3 --imgsz 640
-     --save_txt``, ``spread_detector_state`` weights) on 8 PNGs, ms per
+     --save_txt``, ``spread_detector_state`` weights) on 2 PNGs, ms per
      frame, card against ``--device cpu`` on 2 (boxes as multisets, mask
      IoU of matched instances); then ``train`` for one epoch and
      ``--validate-only`` on its checkpoint;
  24. classify_train: ``classify.ClassifierTrainer`` with the Darknet-53
      backbone (``ClassificationModel(spec=YOLOV3_SPEC)``), 10 classes,
-     224 px, batch 64, one epoch over 640 seeded images under
+     224 px, batch 64, one epoch over 160 seeded images under
      ``build/cls_smoke`` (top-1 / top-5 on 160): step ms, images/s, the
      host's data ms, busy share; then the classify CLI with its default
      backbone and ``--validate-only``;
- 25. classify_vs_cpu: three steps per optimizer (SGD, Adam, AdamW,
+ 25. classify_vs_cpu: two steps per optimizer (SGD, Adam, AdamW,
      RMSProp) at batch 4 @ 64 px on the card and on the CPU, then
      ``predict`` and ``apply_classifier`` over the hub phase's YOLOv3
      detections; the segmentation and classification phases launch none
      of K1-K4 (their counts are printed);
  26. export: the Config() agent biased to denoise through
-     ``detect.export.export_adaptive_isp`` on the card (batch 1 @ 512, 5
-     steps), saved, reloaded and run (launch counts read around that run:
+     ``detect.export.export_adaptive_isp`` on the card (batch 1 @ 512, 1
+     step), saved, reloaded and run (launch counts read around that run:
      K1 once a step) against the eager rollout on the card, then moved to
      the CPU against the port's CPU rollout; full YOLOv3 through
      ``export_detector`` the same way; ``python -m
@@ -169,7 +170,7 @@ Phases, each printing one JSON line:
  27. triton: ``serve.triton.TritonRemoteModel`` against an in-script
      KServe-v2 server backed by YOLOv3 on the card (640 px, batch 1),
      outputs bit for bit the direct forward's, latency median and p90;
- 28. trace_breakdown: three bf16 train steps at batch 8 @ 512 under
+ 28. trace_breakdown: one bf16 train step at batch 8 @ 512 under
      ``obs.profile.trace``, device time by the step's components
      (``obs.trace.component_breakdown``), MFU against
      ``obs.roofline.device_peaks``; fails when more than 15 % of the
@@ -178,16 +179,16 @@ Phases, each printing one JSON line:
      (gloo over CUDA tensors: NCCL refuses two ranks on one device), each
      rank a fresh process (``parallel.launch``) running ``dp_rank``,
      every number beside the single process's run on the card:
-     dp_train_step, 3 steps of the denoise-biased Config() agent (dropout
+     dp_train_step, 2 steps of the denoise-biased Config() agent (dropout
      on) with YOLOv3 f32 and bf16 at global batch 8 @ 512 (4 a rank),
      losses and reward within JAX's sharded-step tolerances, parameters
      within the optimizer-noise bound (``_update_errs``), the ranks'
-     replicas bit for bit, K1 and K2 3 each a rank; dp_trainer,
+     replicas bit for bit, K1 and K2 2 each a rank; dp_trainer,
      ``Trainer(mesh=)`` at the RL path's full width (Config(), bf16
-     YOLOv3, global batch 8 @ 512) with the 128-slot pool (64 a rank), 3
-     iterations, a forced refresh on each shard and one more iteration:
+     YOLOv3, global batch 8 @ 512) with the 128-slot pool (64 a rank), 1
+     iteration, a forced refresh on each shard and one more iteration:
      finite history and pool, the ranks' history, sampled slots, states
-     and metadata bit for bit equal, K1 and K2 at least 3 each a rank;
+     and metadata bit for bit equal, K1 and K2 at least 1 each a rank;
      dp_trainer_vs_cpu, the same at batch 4 @ 128 (YOLOv3-tiny f32,
      dropout off) held against the same two ranks on the CPU
      (``dp_trainer_rank``) as trainer_vs_cpu holds the single trainer;
@@ -216,11 +217,22 @@ Phases, each printing one JSON line:
      on the render phase's 8 PNGs against ``--pipe 0``, PNGs equal, K1 on
      the denoise rank only, and whether gloo sends CUDA tensors;
      tp_detector, ``shard_detector_train_step`` (``DetectorTrainer(mesh=
-     make_mesh_dp_tp(1, 2))``) on YOLOv3 at 640, batch 16, f32, two steps:
+     make_mesh_dp_tp(1, 2))``) on YOLOv3 at 640, batch 16, f32, one step:
      losses within 1e-5 relative, the gathered model and EMA within 2e-3 /
      2e-5, each rank holding half of the split tensors' parameters and
      moments; then ``train_loop --tp 1 --dp 1`` on NCCL against no mesh,
-     one epoch of the detector images, last.pt bit for bit;
+     one epoch of 16 detector images, last.pt bit for bit;
+ 31. denoise_variants: ``ops.denoise.nlm_rgb`` and ``nlm_param`` (the
+     reference's NonLocalMeans and NonLocalMeansParam, plain PyTorch as
+     they are plain XLA in the JAX package) at JAX's defaults, the card
+     against the port's CPU run on one seeded 512 x 512 image (outputs,
+     and nlm_param's gradients in the image and its strength), none of
+     K1-K4 launched; each timed at [8,512,512,3] with its peak memory;
+ 32. resume_all: ``python -m adaptiveisp_tpu_torch.resume_all`` on a root
+     of two runs made from detector_cli's (finished, and stopped after
+     epoch 0): ``--dry-run`` prints one command and launches nothing; the
+     relaunch runs once, on the card, and ends on the uninterrupted run's
+     last.pt bit for bit;
 and in the serving phase the port's mAP: ``summarize`` of the card's and
 the CPU's detections of 2 served images (YOLOv3 with seeded weights that
 do not saturate its head, ``spread_detector_state``) against the same
@@ -233,7 +245,8 @@ validation_b8_blend, validation_b1_merge_tta, val_cli, hr_render,
 train_isp_val, fixed_pipeline, fixed_step_fused, rest, detect_cli,
 export, dp_train_step_f32/rank<r>, dp_train_step_bf16/rank<r>,
 dp_trainer/rank<r>, dp_validation/rank<r>, dp_cli, sp_render/rank<r>,
-sp_hr/rank<r>, ep_blend/rank<r>, pp_cli/rank<r>, kernel_sym; the CPU
+sp_hr/rank<r>, ep_blend/rank<r>, pp_cli/rank<r>, denoise_variants,
+resume_all, kernel_sym; the CPU
 comparisons' card runs count on none), the card's name and power limit,
 and as the last line ``{"ok": true, "device":
 {...}}``.  Exits non-zero, with no result line, without a CUDA device or
@@ -266,12 +279,14 @@ UHD = (2160, 3840)   # the render phase's large frame
 FORCED = [4, -1, -1, -1, -1]   # step 0 = denoise for every image
 REPS = 5
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
-TRAINER_WARMUP, TRAINER_ITERS = 3, 20
+TRAINER_WARMUP, TRAINER_ITERS = 3, 10
 TRAINER_IMAGES, TRAINER_VAL = 64, 8
 MAIN_GATE = np.array([1, 0, 0.3, 1, 0, 1, 1, 0], np.float32)
-# 32 training images (2 steps an epoch at 16) since PR 13: the detector
-# phases' depth, cut to keep the smoke with the axes phases in its time
+# 32 training images (autobatch's batch of 32 in detector_cli and
+# resume_all); detector_train and the tp CLI read the first 16, one step an
+# epoch at 16 (depth cut, as below, to keep the smoke inside its time)
 DET_IMAGES, DET_VAL, DET_SIZE, DET_BATCH = 32, 16, 640, 16
+DET_TRAIN_IMAGES = 16
 DET_EPOCHS = 2
 DET_CPU_SIZE, DET_CPU_BATCH, DET_CPU_STEPS = 256, 2, 2
 
@@ -1489,7 +1504,8 @@ def phase_trainer(smi):
         if resumed is not None:
             resumed.close()
     n_val = len(val_files)
-    expected = only(nlm_gray_fwd=TRAINER_ITERS + 2 * 2 * STEPS,
+    n_vals = TRAINER_ITERS // 10   # validations (and checkpoints) every 10
+    expected = only(nlm_gray_fwd=TRAINER_ITERS + n_vals * 2 * STEPS,
                     nlm_gray_bwd=TRAINER_ITERS)
     rec = {"phase": "trainer", "nvidia_smi": smi,
            "batch": SERVE_BATCH, "size": SERVE_SIZE, "detector": "yolov3",
@@ -1521,7 +1537,7 @@ def phase_trainer(smi):
         raise AssertionError("K1 or K2 not launched by the trainer")
     if not finite or tr.state.step != TRAINER_WARMUP + TRAINER_ITERS:
         raise AssertionError("trainer history not finite or step wrong")
-    if n_val != 4 or ckpt_step != 20 or diffs:
+    if n_val != 2 * n_vals or ckpt_step != 10 * n_vals or diffs:
         raise AssertionError(f"validation strips {val_files}, checkpoint "
                              f"{ckpt_step}, resume diffs {diffs[:10]}")
 
@@ -1676,11 +1692,11 @@ VAL_RUNS = {"b1_free": dict(batch_size=1),
                                  max_images=2)}
 HR_SIZES = ((512, 683), (341, 512))   # (h, w): capped to 384 x 512, odd
 FIXED_CHAIN = ("exposure", "denoise", "gamma", "sharpen")
-FIXED_STEPS, FIXED_BATCHES = 12, 4
-# the optimiser held against the CPU at 512 px: 3 steps (one luminance
-# step, two of the full chain) at batch 2 (the shared denoise strength
-# sums two images' gradients)
-FIXED_CMP_BATCH, FIXED_CMP_STEPS = 2, 3
+FIXED_STEPS, FIXED_BATCHES = 6, 4
+# the optimiser held against the CPU at 512 px: 2 steps (one luminance
+# step, one of the full chain) at batch 2 (the shared denoise strength sums
+# two images' gradients)
+FIXED_CMP_BATCH, FIXED_CMP_STEPS = 2, 2
 FIVE_STAGES = ("exposure", "improved_wb", "ccm", "gamma", "sharpen")
 
 
@@ -2183,7 +2199,8 @@ def phase_fixed_pipeline(smi, det_sd):
 def _det_data():
     """DET_IMAGES seeded 640 x 640 synthetic-shapes PNGs for training and
     16 for validation, 2-5 filled rectangles each with a YOLO label of one
-    of 80 classes, and a data YAML over the validation images, under
+    of 80 classes, a listing of the first DET_TRAIN_IMAGES training images
+    (``train.txt``) and a data YAML over the validation images, under
     build/det_smoke."""
     import shutil
     from pathlib import Path
@@ -2212,6 +2229,8 @@ def _det_data():
             Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
                 root / split / "images" / f"{i}.png")
             (root / split / "labels" / f"{i}.txt").write_text("".join(rows))
+    (root / "train.txt").write_text("".join(
+        f"train/images/{i}.png\n" for i in range(DET_TRAIN_IMAGES)))
     (root / "val.yaml").write_text(yaml.safe_dump({
         "path": str(root / "val"), "train": "images", "val": "images",
         "nc": 80, "source": "normalize"}))
@@ -2235,11 +2254,11 @@ def phase_detector_train(smi):
     """Detector training at full width on the card: ``DetectorTrainer`` on
     full YOLOv3 (80 classes), 640 px, batch 16, f32, the default hyp
     (mosaic, HSV, flips, perspective), validation and checkpoints every
-    epoch, for 2 epochs of 2 steps; each step timed by CUDA events (the
-    step, its optimizer update and EMA apart), each batch's host data time
-    by the host clock; then a second trainer resumed from the first
-    epoch's checkpoint runs the second epoch, equal bit for bit (cuDNN
-    deterministic in this phase)."""
+    epoch, for 2 epochs of 1 step (``train.txt``); each step timed by
+    CUDA events (the step, its optimizer update and EMA apart), each
+    batch's host data time by the host clock; then a second trainer
+    resumed from the first epoch's checkpoint runs the second epoch, equal
+    bit for bit (cuDNN deterministic in this phase)."""
     import contextlib
 
     import torch
@@ -2256,7 +2275,7 @@ def phase_detector_train(smi):
     cfg = DetTrainConfig(epochs=DET_EPOCHS, batch_size=DET_BATCH)
 
     def trainer(save):
-        tds = DetectorDataset(str(root / "train" / "images"),
+        tds = DetectorDataset(str(root / "train.txt"),
                               img_size=DET_SIZE, batch_size=DET_BATCH,
                               augment=True, nc=80, seed=0)
         vds = DetectorDataset(str(root / "val" / "images"),
@@ -2308,7 +2327,7 @@ def phase_detector_train(smi):
     peak = torch.cuda.max_memory_allocated()
     ms = {n: [e0.elapsed_time(e1) for m, e0, e1 in events if m == n]
           for n in ("step", "optimizer", "ema")}
-    spe = DET_IMAGES // DET_BATCH
+    spe = DET_TRAIN_IMAGES // DET_BATCH
     step_med = float(np.median(ms["step"][1:]))
     busy = [sum(ms["step"][e * spe:(e + 1) * spe]) / 1e3 / epoch_s[e]
             for e in range(len(epoch_s))]
@@ -2439,9 +2458,11 @@ def phase_detector_vs_cpu():
 
 def phase_detector_cli():
     """``train_loop.main`` at full width on the card: ``--spec yolov3
-    --imgsz 640 --batch-size -1 --epochs 1`` on the detector data
-    (autobatch sizes the batch from trial steps), then the written best.pt
-    as ``val_isp --weights`` on 4 validation images."""
+    --imgsz 640 --batch-size -1 --epochs 2 --save-period 1
+    --deterministic`` on the detector data, validated on the 16 validation
+    images (autobatch sizes the batch from trial steps; the run and its
+    epoch-0 checkpoint are ``resume_all``'s), then the written best.pt as
+    ``val_isp --weights`` on 4 validation images."""
     import contextlib
 
     import torch
@@ -2466,9 +2487,10 @@ def phase_detector_cli():
         with contextlib.redirect_stdout(sys.stderr):
             hist = train_loop.main([
                 "--data", str(root / "train" / "images"),
-                "--val-data", str(root / "train" / "images"),
+                "--val-data", str(root / "val" / "images"),
                 "--spec", "yolov3", "--imgsz", str(DET_SIZE),
-                "--batch-size", "-1", "--epochs", "1",
+                "--batch-size", "-1", "--epochs", str(DET_EPOCHS),
+                "--save-period", "1", "--deterministic",
                 "--save-dir", str(save), "--exist-ok", "--device", "cuda"])
     finally:
         autobatch.fit_batch = fit
@@ -2490,7 +2512,9 @@ def phase_detector_cli():
     emit(rec)
     if (len(chosen) != 1 or opt["batch_size"] != chosen[0]
             or not (save / "best.pt").exists()
-            or not np.isfinite(hist[0].loss)
+            or not (save / "epoch0.pt").exists()
+            or len(hist) != DET_EPOCHS
+            or not all(np.isfinite(h.loss) for h in hist)
             or not np.isfinite(res["map50"])):
         raise AssertionError(f"detector_cli: {rec}")
     return rec
@@ -2893,13 +2917,13 @@ def phase_raw_unprocess():
 # classifier at 224 px and batch 64.  None of these paths launches K1-K4.
 SEG_BASE, SEG_IMAGES, SEG_VAL, SEG_SIZE, SEG_BATCH = "yolov3", 64, 16, 640, 16
 SEG_NM, SEG_NPR = 32, 256
-SEG_CPU_SIZE, SEG_CPU_BATCH, SEG_CPU_STEPS = 128, 2, 3
-SEG_CLI_IMAGES, SEG_CLI_CPU_IMAGES = 8, 2
+SEG_CPU_SIZE, SEG_CPU_BATCH, SEG_CPU_STEPS = 128, 2, 2
+SEG_CLI_IMAGES, SEG_CLI_CPU_IMAGES = 2, 2
 SEG_MASK_IOU = 0.98
 CLS_BACKBONE, CLS_CLASSES, CLS_PER_CLASS, CLS_VAL_PER_CLASS = (
-    "yolov3", 10, 64, 16)
+    "yolov3", 10, 16, 16)
 CLS_SIZE, CLS_BATCH = 224, 64
-CLS_CPU_SIZE, CLS_CPU_BATCH, CLS_CPU_STEPS = 64, 4, 3
+CLS_CPU_SIZE, CLS_CPU_BATCH, CLS_CPU_STEPS = 64, 4, 2
 CLS_OPTIMIZERS = ("SGD", "Adam", "AdamW", "RMSProp")
 CARD = "cuda"   # the device of the card's side of each comparison
 
@@ -3073,12 +3097,12 @@ def _rel_tensor_errs(got, want, start, kernel_tol, stats_tol):
 
 def phase_segment_vs_cpu():
     """The full-width segmentation spec at batch 2 @ 128 px (masks 32 x
-    32), augmentation off, three ``make_segment_train_step`` steps with
-    the warmup optimizer on the card and on the CPU from one state (TF32
-    off, cuDNN deterministic).  Tolerances as ``detector_vs_cpu`` states
-    them: loss 1e-4 relative; conv kernels and BatchNorm weights 1e-5 of
-    their largest value; biases and BatchNorm statistics 1e-3; the EMA as
-    its parameters."""
+    32), augmentation off, SEG_CPU_STEPS ``make_segment_train_step``
+    steps with the warmup optimizer on the card and on the CPU from one
+    state (TF32 off, cuDNN deterministic).  Tolerances as
+    ``detector_vs_cpu`` states them: loss 1e-4 relative; conv kernels and
+    BatchNorm weights 1e-5 of their largest value; biases and BatchNorm
+    statistics 1e-3; the EMA as its parameters."""
     import copy
 
     import torch
@@ -3178,10 +3202,10 @@ def _seg_rows_err(got, want, max_det: int):
 def phase_segment_cli():
     """The predict CLI (``detect.segment.main``) at full width on the card:
     ``--spec yolov3 --imgsz 640 --save_txt`` with ``spread_detector_state``
-    weights of the segmentation spec (a fresh head's scores cluster), on 8
-    of the training PNGs, run twice (the second run timed: ms per frame
-    without the set-up, the model's build, weights and move, timed
-    apart); then ``--device cpu`` on the first 2:
+    weights of the segmentation spec (a fresh head's scores cluster), on
+    SEG_CLI_IMAGES of the training PNGs, run twice (the second run timed:
+    ms per frame without the set-up, the model's build, weights and move,
+    timed apart); then ``--device cpu`` on SEG_CLI_CPU_IMAGES of them:
     boxes as multisets (``_rows_err``) and each matched instance's mask
     IoU at least SEG_MASK_IOU (bilinear masks thresholded at 0.5: pixels
     within float32 noise of the threshold may flip).  Then ``train`` for
@@ -3310,7 +3334,7 @@ def phase_classify_train(smi):
     """Classification at full width on the card: ``ClassifierTrainer``
     with ``ClassificationModel(spec=YOLOV3_SPEC)`` (the Darknet-53
     backbone and the 1280-wide head), 10 classes, 224 px, batch 64, SGD,
-    one epoch over 640 seeded images with top-1 / top-5 on 160; each step
+    one epoch over 160 seeded images with top-1 / top-5 on 160; each step
     timed by CUDA events, each batch's host load by the host clock; then
     the classify CLI (``classify.main``, its default YOLOv3-tiny backbone)
     for one epoch on the same folders and ``--validate-only`` on its
@@ -3424,10 +3448,10 @@ def _update_errs(got, want, lr_sum):
 
 
 def phase_classify_vs_cpu(hub_weights):
-    """The Darknet-53 classifier at batch 4 @ 64 px, three train steps per
-    optimizer (SGD, Adam, AdamW, RMSProp) on the card and on the CPU from
-    one state (TF32 off, cuDNN deterministic).  Tolerances: the losses 1e-4
-    relative with SGD, 1e-3 with the normalising optimizers; SGD's
+    """The Darknet-53 classifier at batch 4 @ 64 px, CLS_CPU_STEPS train
+    steps per optimizer (SGD, Adam, AdamW, RMSProp) on the card and on the
+    CPU from one state (TF32 off, cuDNN deterministic).  Tolerances: the
+    losses 1e-4 relative with SGD, 1e-3 with the normalising optimizers; SGD's
     parameters as ``detector_vs_cpu``'s (kernels 1e-5 of their largest
     value, biases and statistics 1e-3); the normalising optimizers'
     parameters within 2 summed lr of each other in every element and
@@ -3559,9 +3583,11 @@ def phase_classify_vs_cpu(hub_weights):
 # export, the Triton client, and the train step's device time by component
 # --------------------------------------------------------------------------- #
 EXPORT_SIZE, EXPORT_BATCH = 512, 1
+EXPORT_STEPS = 2   # the exported rollout's steps (depth cut from 5; 2 carries
+                   # states and selections across a step)
 EXPORT_ATOL = 1e-5      # the reloaded program against the eager run, card
 TRITON_SIZE, TRITON_REQUESTS = 640, 8
-TRACE_STEPS = 3
+TRACE_STEPS = 1
 TRACE_OTHER_MAX = 0.15  # share of device time left outside every component
 
 
@@ -3574,11 +3600,12 @@ def _smoke_dir(name):
 def phase_export(smi):
     """``detect.export`` on the card at full width: the Config() agent
     biased to denoise (``_denoise_agent``) through ``export_adaptive_isp``
-    at batch 1 @ 512, 5 steps; saved, loaded (``load_program``) and run,
-    its launches read around the run (K1 once a step), against the eager
-    rollout on the card (within EXPORT_ATOL); the same program moved to the
-    CPU (``move_to_device_pass``) against the port's CPU rollout (the
-    serving phase's card-against-CPU tolerance, 1e-4, selections equal);
+    at batch 1 @ 512, EXPORT_STEPS steps; saved, loaded (``load_program``)
+    and run, its launches read around the run (K1 once a step), against
+    the eager rollout on the card (within EXPORT_ATOL); the same program
+    moved to the CPU (``move_to_device_pass``) against the port's CPU
+    rollout (the serving phase's card-against-CPU tolerance, 1e-4,
+    selections equal);
     then full YOLOv3 (``spread_detector_state`` weights) through
     ``export_detector`` at 512 the same way (the CPU side at the hub
     phase's tolerances); then ``python -m adaptiveisp_tpu_torch.export_cli
@@ -3598,11 +3625,11 @@ def phase_export(smi):
     root = _smoke_dir("export_smoke")
     cfg = Config()
     sd = _denoise_agent(cfg)
-    isp = api.load_adaptive_isp(None, cfg, EXPORT_SIZE, STEPS,
+    isp = api.load_adaptive_isp(None, cfg, EXPORT_SIZE, EXPORT_STEPS,
                                 device="cuda", state_dict=sd)
     t0 = time.perf_counter()
     path = ex.export_adaptive_isp(cfg, isp.agent, str(root / "isp.pt2"),
-                                  imgsz=EXPORT_SIZE, steps=STEPS,
+                                  imgsz=EXPORT_SIZE, steps=EXPORT_STEPS,
                                   batch=EXPORT_BATCH)
     t1 = time.perf_counter()
     program = ex.load_program(path)
@@ -3614,7 +3641,7 @@ def phase_export(smi):
     args = [torch.from_numpy(a) for a in (
         rng.rand(EXPORT_BATCH, EXPORT_SIZE, EXPORT_SIZE, 3).astype(
             np.float32),
-        rng.randn(STEPS, EXPORT_BATCH, cfg.z_dim).astype(np.float32),
+        rng.randn(EXPORT_STEPS, EXPORT_BATCH, cfg.z_dim).astype(np.float32),
         np.zeros((EXPORT_BATCH, cfg.num_state_dim), np.float32))]
     args_g = [a.cuda() for a in args]
     run = program.module()
@@ -3627,23 +3654,23 @@ def phase_export(smi):
         launches = dict(build.LAUNCHES)
         program_ms = cuda_time_ms(lambda: run(*args_g), REPS)
         eager_ms = cuda_time_ms(lambda: rollout(
-            isp.agent, *args_g, no_pipeline(STEPS)), REPS)
-    want = rollout(isp.agent, *args_g, no_pipeline(STEPS))
+            isp.agent, *args_g, no_pipeline(EXPORT_STEPS)), REPS)
+    want = rollout(isp.agent, *args_g, no_pipeline(EXPORT_STEPS))
     err = {k: float((g.float() - w.float()).abs().max())
            for k, g, w in zip(("image", "states", "selected"), got,
                               (want.image, want.states, want.selected))}
     # the same program on the CPU against the port's CPU rollout
     cpu_prog = move_to_device_pass(program, "cpu").module()
-    isp_c = api.load_adaptive_isp(None, cfg, EXPORT_SIZE, STEPS,
+    isp_c = api.load_adaptive_isp(None, cfg, EXPORT_SIZE, EXPORT_STEPS,
                                   device="cpu", state_dict=sd)
     with torch.no_grad():
         got_c = cpu_prog(*args)
-    want_c = rollout(isp_c.agent, *args, no_pipeline(STEPS))
+    want_c = rollout(isp_c.agent, *args, no_pipeline(EXPORT_STEPS))
     err_cpu_prog = float((got_c[0] - want_c.image).abs().max())
     err_card_cpu = float((got[0].cpu() - got_c[0]).abs().max())
     sel_equal = bool(torch.equal(got[2].cpu(), got_c[2]))
     rollout_rec = {
-        "size": EXPORT_SIZE, "batch": EXPORT_BATCH, "steps": STEPS,
+        "size": EXPORT_SIZE, "batch": EXPORT_BATCH, "steps": EXPORT_STEPS,
         "export_s": t1 - t0, "load_s": t2 - t1,
         "pt2_bytes": os.path.getsize(path),
         "nlm_gray_nodes": nodes.count("adaptiveisp_tpu_torch.nlm_gray.default"),
@@ -3653,8 +3680,8 @@ def phase_export(smi):
         "selected": got[2].flatten().tolist(),
         "cpu_program_vs_cpu_rollout": err_cpu_prog,
         "card_vs_cpu_program": err_card_cpu, "selected_equal": sel_equal}
-    ok_roll = (launches == only(nlm_gray_fwd=STEPS)
-               and rollout_rec["nlm_gray_nodes"] == STEPS
+    ok_roll = (launches == only(nlm_gray_fwd=EXPORT_STEPS)
+               and rollout_rec["nlm_gray_nodes"] == EXPORT_STEPS
                and all(v <= EXPORT_ATOL for v in err.values())
                and err_cpu_prog <= 1e-6 and err_card_cpu <= 1e-4
                and sel_equal and bool(torch.isfinite(got[0]).all()))
@@ -3898,16 +3925,17 @@ def phase_trace_breakdown(smi):
 # data parallelism: two gloo ranks on the one card (NCCL refuses two ranks
 # on one device), each the same run as JAX's device r of make_mesh(2)
 # --------------------------------------------------------------------- #
-DP_RANKS, DP_STEPS = 2, 3
+DP_RANKS, DP_STEPS = 2, 2
 # the RL step's frozen detector: f32 and bf16 (the trainer's default),
 # both held to JAX's sharded-step tolerances (tests/test_train_eval.py:
 # value loss 1e-4, reward 1e-3 relative; the agent's loss as the reward)
 DP_DTYPES = ("f32", "bf16")
 DP_RTOL = {"value_loss": 1e-4, "reward": 1e-3, "agent_loss": 1e-3}
-# Trainer(mesh=): the 128-slot pool (64 a rank), 3 iterations; at the RL
+# Trainer(mesh=): the 128-slot pool (64 a rank), 1 iteration before the
+# forced refresh; at the RL
 # path's full width (bf16 YOLOv3, global batch 8 @ 512, Config()) and at a
 # size the ranks on the CPU repeat (YOLOv3-tiny f32, 4 @ 128, dropout off)
-DP_TRAINER = dict(pool=128, iters=3)
+DP_TRAINER = dict(pool=128, iters=1)
 DP_TRAINER_VS_CPU = dict(batch=4, size=128, dtype="float32",
                          cfg={"dropout_keep_prob": 1.0})
 DP_LOSS_RTOL = 2e-4                  # JAX's sharded detector step
@@ -4618,7 +4646,7 @@ EP_BATCH, EP_SIZE = SERVE_BATCH, SERVE_SIZE
 EP_RTOL, EP_ATOL = 1e-5, 1e-6           # JAX's own (tests/test_ep_pp.py)
 PP_STAGES = ("denoise:0.4", "sharpen_usm:1.2,0.6")
 PP_WINDOW, PP_BATCH = 4, 2
-TP_STEPS = 2
+TP_STEPS = 1
 TP_LOSS_RTOL = 1e-5
 # the spec, size and batch of the tp phase and of the NCCL CLI run (the
 # detector phases'); a CPU rehearsal sets them small
@@ -4648,8 +4676,7 @@ def _axes_conf():
                        size=SERVE_SIZE, steps=STEPS),
             "tp": dict(spec=resolve_spec(TP_SPEC_NAME), size=DET_SIZE,
                        batch=DET_BATCH, steps=TP_STEPS,
-                       data=str(build_dir / "det_smoke" / "train"
-                                / "images"),
+                       data=str(build_dir / "det_smoke" / "train.txt"),
                        batch_file=str(root / "tp_batch.pt"),
                        ref_file=str(root / "tp_ref.pt"))}
 
@@ -5237,6 +5264,211 @@ def phase_axes(smi):
     return paths
 
 
+# the NLM variants the JAX package computes in plain XLA (no Pallas kernel):
+# JAX's defaults (nlm_rgb: search 21, patch 7; nlm_param: search 21), the
+# card against the port's CPU run on one seeded 512 x 512 image (outputs
+# and nlm_param's gradients), then timed at the serving batch
+VARIANT_CMP = (1, SERVE_SIZE, SERVE_SIZE, 3)
+VARIANT_TIMED = (SERVE_BATCH, SERVE_SIZE, SERVE_SIZE, 3)
+VARIANT_REPS = 3
+VARIANT_ATOL = 1e-5     # outputs in [0, 1], card against CPU
+VARIANT_GRAD_RTOL = 1e-4   # gradients, relative to their largest element
+
+
+def phase_denoise_variants(smi):
+    """``ops.denoise.nlm_rgb`` and ``nlm_param`` at JAX's defaults: on the
+    card and on the CPU from the same seeded [1,512,512,3] image (values a
+    little past [0, 1]), outputs within VARIANT_ATOL and nlm_param's
+    gradients in the image and in its one strength (which requires a
+    gradient, as an optimizer owns it) within VARIANT_GRAD_RTOL of their
+    largest element; the card's run launches none of K1-K4 (its counts are
+    the ``denoise_variants`` path).  Then each timed at [8,512,512,3]
+    (CUDA events, median of VARIANT_REPS after one): both forwards without
+    a gradient and nlm_param's forward plus backward, with each one's peak
+    memory.  Returns the path's launch counts."""
+    import torch
+
+    from adaptiveisp_tpu_torch.ops import denoise
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    rng = np.random.RandomState(23)
+    x = (rng.rand(*VARIANT_CMP) * 1.1 - 0.05).astype(np.float32)
+    v = rng.randn(*VARIANT_CMP).astype(np.float32)
+    h_rgb = np.array([[0.3]], np.float32)
+
+    def run(device):
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        ht = torch.tensor(0.3, device=device, requires_grad=True)
+        out = denoise.nlm_param(xt, ht)
+        (out * torch.from_numpy(v).to(device)).sum().backward()
+        with torch.no_grad():
+            rgb = denoise.nlm_rgb(xt.detach(),
+                                  torch.from_numpy(h_rgb).to(device))
+        return {"nlm_rgb": rgb.cpu(), "nlm_param": out.detach().cpu(),
+                "grad_rgb": xt.grad.cpu(), "grad_h": ht.grad.cpu()}
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    card = run(CARD)
+    if CARD != "cpu":
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    err = {k: float((card[k] - cpu[k]).abs().max()) for k in card}
+    scale = {k: float(cpu[k].abs().max()) for k in ("grad_rgb", "grad_h")}
+    finite = all(bool(torch.isfinite(t).all()) for t in card.values())
+
+    g = torch.Generator(device=CARD).manual_seed(24)
+    xb = torch.rand(VARIANT_TIMED, generator=g, device=CARD)
+    hb = torch.full((VARIANT_TIMED[0], 1), 0.3, device=CARD)
+    hp = torch.tensor(0.3, device=CARD, requires_grad=True)
+
+    def param_step():
+        xg = xb.clone().requires_grad_()
+        denoise.nlm_param(xg, hp).mean().backward()
+
+    timed = {}
+    for name, fn, grad in (
+            ("nlm_rgb_fwd", lambda: denoise.nlm_rgb(xb, hb), False),
+            ("nlm_param_fwd", lambda: denoise.nlm_param(xb, hp), False),
+            ("nlm_param_fwd_bwd", param_step, True)):
+        with torch.set_grad_enabled(grad):
+            fn()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(fn, VARIANT_REPS)
+            peak = torch.cuda.max_memory_allocated()
+            timed[name] = {"ms": ms, "peak_gb": peak / 1e9,
+                           "peak_over_start_gb": (peak - base) / 1e9}
+    rec = {"phase": "denoise_variants", "nvidia_smi": smi,
+           "compare_shape": list(VARIANT_CMP),
+           "timed_shape": list(VARIANT_TIMED),
+           "defaults": {"nlm_rgb": [21, 7], "nlm_param": [21]},
+           "max_abs_err": err, "grad_scale": scale,
+           "tolerance": {"atol": VARIANT_ATOL,
+                         "grad_rtol_of_max": VARIANT_GRAD_RTOL},
+           "card_seconds": card_s, "cpu_seconds": cpu_s,
+           "launches": launches, "timed": timed, "finite": finite}
+    emit(rec)
+    ok = (finite and not any(launches.values())
+          and err["nlm_rgb"] <= VARIANT_ATOL
+          and err["nlm_param"] <= VARIANT_ATOL
+          and all(err[k] <= VARIANT_GRAD_RTOL * scale[k] for k in scale)
+          and scale["grad_h"] > 0)
+    if not ok:
+        raise AssertionError(f"denoise_variants: {rec}")
+    return launches
+
+
+def phase_resume_all(smi):
+    """``python -m adaptiveisp_tpu_torch.resume_all ROOT`` as a user runs
+    it, on a root of two runs made from detector_cli's: ``done``, its
+    finished run (last.pt at the last epoch), and ``cut``, the same run
+    stopped after epoch 0 (its epoch-0 checkpoint as last.pt, opt.yaml
+    naming this directory); files are hard links, and a trainer replaces
+    a checkpoint by renaming, so detector_cli's files stay as they are.
+    ``--dry-run`` prints the one command and launches nothing; then the
+    tool relaunches ``cut`` once, on the card (``--device cuda`` and
+    ``--deterministic``, which pins cuDNN's algorithms and TF32 off as in
+    this process, come back from opt.yaml), and its final last.pt (model
+    and EMA) equals the uninterrupted run's bit for bit.  Returns
+    the path's launch counts in this process (the relaunch is another
+    process and launches none of K1-K4: detector training)."""
+    import gc
+    import shutil
+
+    import torch
+    import yaml
+
+    from adaptiveisp_tpu_torch.ops.cuda import build
+
+    repo = Path(__file__).resolve().parent
+    whole = repo / "build" / "det_smoke" / "cli"
+    root = repo / "build" / "resume_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    opt = yaml.safe_load((whole / "opt.yaml").read_text())
+    for name, ckpt in (("done", "last.pt"), ("cut", "epoch0.pt")):
+        (root / name).mkdir(parents=True)
+        try:
+            os.link(whole / ckpt, root / name / "last.pt")
+        except OSError:   # a file system without hard links
+            shutil.copy(whole / ckpt, root / name / "last.pt")
+        (root / name / "opt.yaml").write_text(yaml.safe_dump(
+            dict(opt, save_dir=str(root / name)), sort_keys=False))
+    cmd = [sys.executable, "-m", "adaptiveisp_tpu_torch.resume_all",
+           str(root)]
+
+    def files():
+        return {str(p): p.stat().st_mtime_ns for p in root.rglob("*")}
+
+    before = files()
+    t0 = time.perf_counter()
+    dry = subprocess.run(cmd + ["--dry-run"], capture_output=True,
+                         text=True, timeout=300, cwd=repo)
+    dry_s = time.perf_counter() - t0
+    untouched = files() == before
+    # the relaunch is another process on the same card: this one hands
+    # back the memory its caching allocator keeps
+    gc.collect()
+    held_gb = None
+    if CARD != "cpu":
+        torch.cuda.empty_cache()
+        held_gb = [torch.cuda.memory_allocated() / 1e9,
+                   torch.cuda.memory_reserved() / 1e9]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                         cwd=repo)
+    run_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    marker = "-m adaptiveisp_tpu_torch.detect.train_loop "
+    printed = [ln for ln in dry.stdout.splitlines() if marker in ln]
+    relaunched = [ln for ln in run.stdout.splitlines() if marker in ln]
+    resumed = [ln for ln in run.stdout.splitlines()
+               if ln.startswith("resumed from ")]
+    want = torch.load(whole / "last.pt", map_location="cpu",
+                      weights_only=False)
+    got = torch.load(root / "cut" / "last.pt", map_location="cpu",
+                     weights_only=False)
+    diffs = [f"{part}.{k}" for part in ("model", "ema")
+             for k, t in want[part].items()
+             if not torch.equal(t, got[part][k])]
+    new_opt = yaml.safe_load((root / "cut" / "opt.yaml").read_text())
+    rec = {"phase": "resume_all", "nvidia_smi": smi, "root": str(root),
+           "runs": {"done": {"epoch": int(torch.load(
+               root / "done" / "last.pt", map_location="cpu",
+               weights_only=False)["epoch"]), "epochs": opt["epochs"]},
+                    "cut": {"epoch": 0, "epochs": opt["epochs"]}},
+           "dry_run": {"rc": dry.returncode, "seconds": dry_s,
+                       "commands": printed, "files_untouched": untouched},
+           "relaunch": {"rc": run.returncode, "seconds": run_s,
+                        "commands": len(relaunched),
+                        "resumed_lines": resumed,
+                        "device": new_opt.get("device"),
+                        "final_epoch": int(got["epoch"]),
+                        "step": [int(got["step"]), int(want["step"])]},
+           "bit_equal": not diffs, "diffs": diffs[:10],
+           "parent_allocated_reserved_gb": held_gb, "launches": launches}
+    emit(rec)
+    ok = (dry.returncode == 0 and run.returncode == 0 and untouched
+          and len(printed) == 1 and relaunched == printed
+          and "/cut/last.pt" in printed[0] and "/done/" not in printed[0]
+          and "--device cuda" in printed[0] and len(resumed) == 1
+          and new_opt.get("device") == "cuda"
+          and new_opt.get("resume") == str(root / "cut" / "last.pt")
+          and int(got["epoch"]) == int(want["epoch"]) == DET_EPOCHS - 1
+          and int(got["step"]) == int(want["step"]) and not diffs
+          and not any(launches.values()))
+    if not ok:
+        raise AssertionError(f"resume_all: {rec} {run.stderr[-3000:]}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5291,6 +5523,9 @@ def main() -> int:
         timed("trace_breakdown", phase_trace_breakdown, smi)
         dp_launches = timed("dp", phase_dp, smi)
         axes_launches = timed("axes", phase_axes, smi)
+        variant_launches = timed("denoise_variants", phase_denoise_variants,
+                                 smi)
+        resume_launches = timed("resume_all", phase_resume_all, smi)
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
@@ -5305,7 +5540,9 @@ def main() -> int:
                   "train_isp_val": train_isp_val, "fixed_pipeline": fixed,
                   "fixed_step_fused": fixed_fused, "rest": rest_launches,
                   "detect_cli": cli_launches, "export": export_launches,
-                  **dp_launches, **axes_launches}
+                  **dp_launches, **axes_launches,
+                  "denoise_variants": variant_launches,
+                  "resume_all": resume_launches}
 
     def entry(name, counter, source, replaces, cases, err_key, paths,
               ms_key="ms"):

@@ -431,5 +431,7 @@ def test_port_sources_import_no_jax():
     for d, _, names in os.walk(os.path.join(REPO, "adaptiveisp_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    assert {os.path.join(REPO, "adaptiveisp_tpu_torch", n) for n in (
+        "resume_all.py", "ops/denoise.py", "data/letterbox.py")} <= set(files)
     bad = [f for f in files if pat.search(open(f).read())]
     assert bad == []

@@ -168,7 +168,8 @@ def test_port_imports_no_jax():
         "'detect.segment', 'data.segment_dataset', 'classify', "
         "'detect.export', 'detect.export_tf', 'export_cli', "
         "'serve.triton', 'obs.roofline', 'obs.trace', 'train.mesh', "
-        "'parallel', 'tensor_parallel', 'ops.ep', 'ops.pp')}\n"
+        "'parallel', 'tensor_parallel', 'ops.ep', 'ops.pp', "
+        "'resume_all')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
