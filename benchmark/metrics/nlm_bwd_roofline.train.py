@@ -1,0 +1,17 @@
+"""K2 (``nlm_bwd_kernel``, the gated NLM backward) in the traced training
+iterations as a share of its roofline: the frozen least time of each
+launch over K2's device time, in %."""
+
+from benchmark.roofline.devicetrace import kernel_seconds
+from benchmark.roofline.kernels import nlm_bwd_bound
+
+
+def read(layer):
+    trace, launches = layer.get("trace"), layer.get("nlm_bwd_launches")
+    if not trace or not launches:
+        return None
+    count, secs = kernel_seconds(trace, "nlm_bwd_kernel")
+    if count != len(launches) or secs <= 0:
+        return None
+    return 100.0 * sum(nlm_bwd_bound(*g)["bound_ms"] for g in launches) \
+        * 1e-3 / secs
