@@ -42,6 +42,7 @@ from adaptiveisp_tpu_torch.eval.rollout import (
     no_pipeline,
     rollout,
 )
+from adaptiveisp_tpu_torch.obs.profile import count, span
 from adaptiveisp_tpu_torch.policy.agent import Agent
 from adaptiveisp_tpu_torch.policy.states import get_initial_states, get_noise
 from adaptiveisp_tpu_torch.policy.value import Value
@@ -92,6 +93,7 @@ class AdaptiveISP:
         noises = np.stack([get_noise(rng, n, self.cfg.z_dim, self.cfg.z_type)
                            for _ in range(self.steps)])
         states = get_initial_states(n, self.cfg.num_state_dim)
+        count("host_read.upload.rollout", 2)
         return (images, torch.as_tensor(noises, device=self.device),
                 torch.as_tensor(states, device=self.device))
 
@@ -235,25 +237,32 @@ class Detector:
             self.names = dict(enumerate(COCO_NAMES))
 
     def decoded(self, images: torch.Tensor) -> torch.Tensor:
-        """NHWC images on the device -> decoded candidates [N, M, no]."""
-        if isinstance(self.model, DetectorEnsemble):
-            return self.model.decoded(images)
-        if self.augment:
-            return forward_augment(self.model, images, self.spec)
-        return decode_predictions(self.model(images), self.spec)
+        """NHWC images on the device -> decoded candidates [N, M, no]
+        (spans ``detect.forward``, ``detect.decode``)."""
+        with span("detect.forward"):
+            if isinstance(self.model, DetectorEnsemble):
+                return self.model.decoded(images)
+            if self.augment:
+                return forward_augment(self.model, images, self.spec)
+            raw = self.model(images)
+        with span("detect.decode"):
+            return decode_predictions(raw, self.spec)
 
     @torch.no_grad()
     def detect(self, images, conf_thres: float = 0.25,
                iou_thres: float = 0.45, max_det: int = 300,
                multi_label: bool = False, classes=None,
                agnostic: bool = False):
-        """images [N, H, W, 3] -> (detections [N, max_det, 6], n_valid [N])."""
-        preds = self.decoded(_as_images(images, self.device))
-        return non_max_suppression(
-            preds, conf_thres=conf_thres, iou_thres=iou_thres,
-            max_det=max_det, multi_label=multi_label,
-            classes=tuple(classes) if classes is not None else None,
-            agnostic=agnostic)
+        """images [N, H, W, 3] -> (detections [N, max_det, 6], n_valid [N])
+        (span ``detect``, NMS in ``detect.nms``)."""
+        with span("detect"):
+            preds = self.decoded(_as_images(images, self.device))
+            with span("detect.nms"):
+                return non_max_suppression(
+                    preds, conf_thres=conf_thres, iou_thres=iou_thres,
+                    max_det=max_det, multi_label=multi_label,
+                    classes=tuple(classes) if classes is not None else None,
+                    agnostic=agnostic)
 
     def __call__(self, sources, size: int = 512, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,

@@ -29,6 +29,11 @@ say; a refresh decodes the same fresh images on every rank and each rank
 uploads (and seeds the losses of) the slots in its own shard.  Batch rows
 [r B/D, (r+1) B/D) come from shard r, so a rank gathers and writes back only
 its own rows.
+
+Spans (only while a profiler records, ``obs/profile.py``): ``pool.sample``,
+``pool.writeback`` (``replace``), ``pool.refresh``, ``pool.seed_loss`` and
+``feeder.wait`` (a refresh waiting for the feeder's next decoded batch);
+each blocking upload is counted as ``host_read.upload.pool``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from adaptiveisp_tpu_torch.data.datasets import BatchFeeder, ISPDataset
+from adaptiveisp_tpu_torch.obs.profile import count, span
 from adaptiveisp_tpu_torch.policy.states import (
     STATE_STEP_DIM,
     STATE_STOPPED_DIM,
@@ -104,6 +110,7 @@ class DeviceReplayMemory:
                 self.images, [m["label"] for m in self.meta[own]]))
 
     def _index(self, idx) -> torch.Tensor:
+        count("host_read.upload.pool")
         return torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
 
     def _own_rows(self, n: int) -> np.ndarray:
@@ -117,6 +124,10 @@ class DeviceReplayMemory:
         """Pick non-stopped slots; returns (slot_idx, device_images,
         states, labels, paths, shapes, z), everything for the whole batch
         but the images, which are this rank's rows over a mesh."""
+        with span("pool.sample"):
+            return self._sample(batch_size)
+
+    def _sample(self, batch_size: int):
         if self.mesh is None:
             live = np.where(self.states[:, STATE_STOPPED_DIM] != 1)[0]
             if len(live) < batch_size:
@@ -165,6 +176,10 @@ class DeviceReplayMemory:
         its slot's cached input loss at its next sampling.  Over a mesh
         ``retouch`` holds this rank's rows; ``new_states`` and
         ``retouch_loss`` the whole batch's."""
+        with span("pool.writeback"):
+            self._replace(idx, retouch, new_states, diverged, retouch_loss)
+
+    def _replace(self, idx, retouch, new_states, diverged, retouch_loss):
         if diverged:
             self._refresh_slots(idx)
             return
@@ -205,9 +220,14 @@ class DeviceReplayMemory:
         ``index_copy_``, and their losses seeded on the device."""
         if len(slots) == 0:
             return
+        with span("pool.refresh"):
+            self._refresh(slots)
+
+    def _refresh(self, slots: np.ndarray):
         fresh = self._fresh_queue
         while len(fresh) < len(slots):
-            b = self.feeder.next_batch()
+            with span("feeder.wait"):
+                b = self.feeder.next_batch()
             self.fresh_images += len(b["im"])
             for i in range(len(b["im"])):
                 fresh.append((b["im"][i], {
@@ -225,6 +245,7 @@ class DeviceReplayMemory:
                         & (slots < self.lo + self.shard_size))[0]
         if not len(mine):
             return
+        count("host_read.upload.pool")
         vals = torch.from_numpy(np.stack([fresh[i][0] for i in mine], 0)).to(
             self.device)
         index = self._index(slots[mine] - self.lo)
@@ -237,8 +258,10 @@ class DeviceReplayMemory:
         """Detector input losses of device images, in chunks of the feeder
         batch (no padding: each image's loss is its own)."""
         fb = max(1, self.feeder.batch_size)
-        return torch.cat([self.loss_fn(images[s:s + fb], labels[s:s + fb])
-                          for s in range(0, images.shape[0], fb)], 0)
+        with span("pool.seed_loss"):
+            return torch.cat([self.loss_fn(images[s:s + fb],
+                                           labels[s:s + fb])
+                              for s in range(0, images.shape[0], fb)], 0)
 
     # ------------------------------------------------------------------ #
     def stats(self) -> Dict[str, float]:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from adaptiveisp_tpu_torch.detect.boxes import bbox_ciou
+from adaptiveisp_tpu_torch.obs.profile import count
 from adaptiveisp_tpu_torch.ops.math import clip
 
 BALANCE_3 = (4.0, 1.0, 0.4)
@@ -83,6 +84,7 @@ def _candidate_table(shape, targets, tmask, anchors, hyp: LossHyp):
     ny, nx, na = shape
     n, t = targets.shape[:2]
     dev = targets.device
+    count("host_read.upload.loss", 3)   # the grid, the anchors, the offsets
     grid = torch.tensor([nx, ny], dtype=torch.float32, device=dev)
     gxy = targets[..., 1:3] * grid                       # [N, T, 2]
     gwh = targets[..., 3:5] * grid

@@ -49,6 +49,7 @@ from adaptiveisp_tpu_torch.detect.layers import (
 )
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC, flatten_layers
 from adaptiveisp_tpu_torch.nn_init import flax_init_
+from adaptiveisp_tpu_torch.obs.profile import count
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -301,6 +302,7 @@ def decode_predictions(preds: Sequence[torch.Tensor], spec=None):
         # channels past 5 + spec nc (mask coefficients) stay raw, as JAX's
         y = torch.cat([torch.sigmoid(p[..., :5 + nc]), p[..., 5 + nc:]],
                       dim=-1)
+        count("host_read.upload.detect", 2)  # the grid and the anchors
         gxv, gyv = np.meshgrid(np.arange(nx, dtype=np.float32),
                                np.arange(ny, dtype=np.float32))
         grid = torch.as_tensor(np.stack([gxv, gyv], axis=-1) - 0.5,

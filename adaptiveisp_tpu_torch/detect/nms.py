@@ -12,6 +12,9 @@ Same semantics and defaults as the JAX version, batched over images:
     suppression graph only points to earlier rows), then its kept boxes
     suppress every later row.  An image stops once ``max_det`` boxes are
     kept; later blocks score lower and can never reach its output;
+  * each block runs in a span ``nms.block``; every host read of a flag
+    (a block's "any image still short of ``max_det``", a fixpoint round's
+    "anything changed") is counted as ``host_read.nms``;
   * ``merge=True`` (merge-NMS) replaces each kept box by the score-weighted
     mean of the candidates overlapping it.
 
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from adaptiveisp_tpu_torch.detect.boxes import box_iou, xywh2xyxy
+from adaptiveisp_tpu_torch.obs.profile import count, span
 
 MAX_WH = 7680.0
 
@@ -33,6 +37,12 @@ def _top_k(scores, k: int):
     """Exact top-k along the last dim, ties to the lower index."""
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _any(flags) -> bool:
+    """A host read: whether any of the device's ``flags`` is set."""
+    count("host_read.nms")
+    return bool(flags.any())
 
 
 def _take(x, idx):
@@ -79,6 +89,7 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
     cmask = None
     if classes is not None:
         cmask = torch.zeros((nc,), dtype=prediction.dtype, device=dev)
+        count("host_read.upload.nms")
         cmask[torch.as_tensor(list(classes), dtype=torch.long)] = 1.0
 
     if multi_label and nc > 1:
@@ -119,25 +130,27 @@ def non_max_suppression(prediction, conf_thres: float = 0.25,
     n_kept = torch.zeros((n_img,), dtype=torch.long, device=dev)
     it_end = torch.zeros((n_img,), dtype=torch.long, device=dev)
     for it in range(nb):
-        active = n_kept < max_det
-        if not bool(active.any()):
-            break
-        start = it * bsz
-        blk_boxes = boxes_p[:, start:start + bsz]
-        blk_alive = alive[:, start:start + bsz]
-        sup_edge = (box_iou(blk_boxes, blk_boxes) > iou_thres) & lower
-        kb, prev, i = blk_alive, torch.zeros_like(blk_alive), 0
-        while i < bsz and bool((kb != prev).any()):
-            suppressed = (sup_edge & kb[:, None, :]).any(dim=2)
-            prev, kb, i = kb, blk_alive & ~suppressed, i + 1
-        sup = ((box_iou(blk_boxes, boxes_p) > iou_thres)
-               & kb[..., None]).any(dim=1)
-        new_alive = alive & ~(sup & (col_k >= start + bsz))
-        new_alive[:, start:start + bsz] = kb
-        alive = torch.where(active[:, None], new_alive, alive)
-        n_kept = n_kept + torch.where(active, kb.sum(dim=1),
-                                      torch.zeros_like(n_kept))
-        it_end = torch.where(active, torch.full_like(it_end, it + 1), it_end)
+        with span("nms.block"):
+            active = n_kept < max_det
+            if not _any(active):
+                break
+            start = it * bsz
+            blk_boxes = boxes_p[:, start:start + bsz]
+            blk_alive = alive[:, start:start + bsz]
+            sup_edge = (box_iou(blk_boxes, blk_boxes) > iou_thres) & lower
+            kb, prev, i = blk_alive, torch.zeros_like(blk_alive), 0
+            while i < bsz and _any(kb != prev):
+                suppressed = (sup_edge & kb[:, None, :]).any(dim=2)
+                prev, kb, i = kb, blk_alive & ~suppressed, i + 1
+            sup = ((box_iou(blk_boxes, boxes_p) > iou_thres)
+                   & kb[..., None]).any(dim=1)
+            new_alive = alive & ~(sup & (col_k >= start + bsz))
+            new_alive[:, start:start + bsz] = kb
+            alive = torch.where(active[:, None], new_alive, alive)
+            n_kept = n_kept + torch.where(active, kb.sum(dim=1),
+                                          torch.zeros_like(n_kept))
+            it_end = torch.where(active, torch.full_like(it_end, it + 1),
+                                 it_end)
     keep = (alive & (col_k[None, :] < it_end[:, None] * bsz))[:, :k]
 
     # survivors by score (already sorted), padded to max_det

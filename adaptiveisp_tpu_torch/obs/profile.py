@@ -7,6 +7,16 @@
 device work it launched.  On the CPU there is nothing to wait for.
 ``trace`` writes a ``torch.profiler`` Chrome trace that ``obs/trace.py``
 reads; ``profile_fn`` is the FLOP and memory count of one call.
+
+``span`` and ``count`` are the program's own instrumentation, live only
+while a ``torch.profiler`` records: ``span(name)`` is then a
+``record_function`` scope, on the trace's clock beside the kernels (an idle
+stretch of the card sits under the span of the layer whose host code left
+it idle), and ``count(name)`` adds to ``COUNTS``.  Otherwise a span is one
+shared no-op and a count does nothing; whether a profiler runs is the only
+switch.  ``host_read.<layer>`` counts each call of that layer at which the
+host waits for the card's stream (``host_read.upload.<layer>``: a blocking
+upload from pageable memory, which waits for the stream before it copies).
 """
 
 from __future__ import annotations
@@ -18,6 +28,38 @@ import time
 from typing import Dict
 
 import torch
+
+_profiling = torch.autograd._profiler_enabled
+
+# counts of the last traced stretch, by name (``count``)
+COUNTS: Dict[str, int] = {}
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A ``record_function(name)`` scope while the profiler records, else
+    the shared no-op."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to ``COUNTS[name]`` while the profiler records."""
+    if _profiling():
+        COUNTS[name] = COUNTS.get(name, 0) + n
 
 
 class Profile(contextlib.ContextDecorator):
@@ -59,9 +101,11 @@ def trace(log_dir: str):
     is one; shapes recorded, FLOPs counted), written as a Chrome trace
     ``trace.json`` into ``log_dir``, where ``obs.trace.trace_op_table``
     reads it.  The trace also carries each operation's FLOPs (an argument
-    ``flops``), which the profiler counts but does not write."""
+    ``flops``), which the profiler counts but does not write.  ``COUNTS``
+    starts empty and is written beside it as ``counts.json``."""
     from torch.profiler import ProfilerActivity, profile
 
+    COUNTS.clear()
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -86,6 +130,8 @@ def trace(log_dir: str):
                 e["args"]["flops"] = n
         with open(path, "w") as f:
             json.dump(data, f)
+        with open(os.path.join(log_dir, "counts.json"), "w") as f:
+            json.dump(COUNTS, f, indent=1, sort_keys=True)
 
 
 def _tensor_bytes(tree) -> float:

@@ -91,11 +91,15 @@ def _args(e) -> Dict:
 
 
 def _load_events(paths) -> List[Dict]:
+    """The complete events of the Chrome traces among ``paths`` (other JSON
+    files beside them, such as ``obs.profile.trace``'s ``counts.json``,
+    hold none)."""
     events = []
     for path in paths:
         with open(path) as f:
             data = json.load(f)
-        trace = data["traceEvents"] if isinstance(data, dict) else data
+        trace = (data.get("traceEvents", []) if isinstance(data, dict)
+                 else data)
         events += [e for e in trace if e.get("ph") == "X" and "ts" in e]
     for e in events:
         e["ts"], e["dur"] = float(e["ts"]), float(e.get("dur", 0.0))

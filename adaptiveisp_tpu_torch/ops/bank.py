@@ -27,6 +27,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from adaptiveisp_tpu_torch import parallel
+from adaptiveisp_tpu_torch.obs.profile import count, span
 from adaptiveisp_tpu_torch.ops import filters as F
 from adaptiveisp_tpu_torch.ops import masks as M
 from adaptiveisp_tpu_torch.ops.math import clip, lerp
@@ -162,21 +163,25 @@ def render_candidates(cfg, img, params_list: Sequence, mask_params_list=None):
 
 def render_blend(cfg, img, params_list: Sequence, onehot,
                  mask_params_list=None, rows=None):
-    """One-hot blend of all candidates; onehot [N, K] -> [N, H, W, 3]."""
+    """One-hot blend of all candidates; onehot [N, K] -> [N, H, W, 3].
+    Each candidate runs in a span ``render.<short name>``."""
     out = torch.zeros_like(img)
     for k, spec in enumerate(filter_specs(cfg)):
-        mp = None if mask_params_list is None else mask_params_list[k]
-        gate = onehot[:, k] if spec.gated else None
-        cand = apply_one(cfg, spec, img, params_list[k], mp, gate=gate,
-                         rows=rows)
-        out = out + cand * onehot[:, k, None, None, None]
+        with span("render." + spec.short_name):
+            mp = None if mask_params_list is None else mask_params_list[k]
+            gate = onehot[:, k] if spec.gated else None
+            cand = apply_one(cfg, spec, img, params_list[k], mp, gate=gate,
+                             rows=rows)
+            out = out + cand * onehot[:, k, None, None, None]
     return out
 
 
 def render_switch(cfg, img, params_list: Sequence, selected_id: int,
                   mask_params_list=None, rows=None):
     """Render only the selected filter, one action for the whole batch
-    (``selected_id`` a Python int or a scalar tensor)."""
+    (``selected_id`` a Python int or a scalar tensor, read on the host)."""
+    if isinstance(selected_id, torch.Tensor):
+        count("host_read.render")
     k = int(selected_id)
     spec = filter_specs(cfg)[k]
     mp = None if mask_params_list is None else mask_params_list[k]

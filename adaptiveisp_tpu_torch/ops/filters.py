@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from adaptiveisp_tpu_torch.obs.profile import count
 from adaptiveisp_tpu_torch.ops import denoise as _denoise
 from adaptiveisp_tpu_torch.ops import sharpen as _sharpen
 from adaptiveisp_tpu_torch.ops.math import (
@@ -56,6 +57,7 @@ def apply_gamma(cfg, img, param):
 # Improved white balance: channel gains, R pinned, luminance-normalised
 def squash_improved_wb(cfg, feat):
     log_wb_range = 0.5
+    count("host_read.upload.agent")
     mask = torch.tensor([[0.0, 1.0, 1.0]], dtype=feat.dtype,
                         device=feat.device)
     scale = torch.exp(tanh_range(-log_wb_range, log_wb_range)(feat * mask))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adaptiveisp_tpu_torch.obs.profile import count
 from adaptiveisp_tpu_torch.ops.math import rgb2lum, tanh_range
 
 FILTER_INPUT_RANGE = 5.0
@@ -22,6 +23,7 @@ def mask_grid(h: int, w: int, dtype=torch.float32, device=None):
     shorter = min(h, w)
     i = (np.arange(h, dtype=np.float64) + (shorter - h) / 2.0) / shorter - 0.5
     j = (np.arange(w, dtype=np.float64) + (shorter - w) / 2.0) / shorter - 0.5
+    count("host_read.upload.render", 2)
     gy = torch.as_tensor(np.broadcast_to(i[:, None], (h, w)).copy(),
                          dtype=dtype, device=device)
     gx = torch.as_tensor(np.broadcast_to(j[None, :], (h, w)).copy(),

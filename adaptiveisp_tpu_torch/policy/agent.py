@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from adaptiveisp_tpu_torch.nn_init import flax_init_
+from adaptiveisp_tpu_torch.obs.profile import count, span
 from adaptiveisp_tpu_torch.ops import bank
 from adaptiveisp_tpu_torch.ops.math import adaptive_avg_pool, clip
 from adaptiveisp_tpu_torch.policy.nets import (
@@ -96,35 +97,38 @@ class Agent(nn.Module):
         n_filters = cfg.n_filters
         selection_noise = z[:, 0:1]
 
-        enriched = enrich_image_input(
-            cfg, adaptive_avg_pool(x, self.feature_size), states)
+        with span("agent.nets"):
+            enriched = enrich_image_input(
+                cfg, adaptive_avg_pool(x, self.feature_size), states)
 
-        # ---- per-filter parameter regression ----
-        filter_features = self.feature_extractor(enriched, generator)
-        raw_params, mask_params, squashed = [], [], []
-        for spec in self.specs:
-            fp, mp = getattr(self, spec.short_name)(filter_features)
-            raw_params.append(fp)
-            mask_params.append(mp)
-            squashed.append(spec.squash(cfg, fp))
+            # ---- per-filter parameter regression ----
+            filter_features = self.feature_extractor(enriched, generator)
+            raw_params, mask_params, squashed = [], [], []
+            for spec in self.specs:
+                fp, mp = getattr(self, spec.short_name)(filter_features)
+                raw_params.append(fp)
+                mask_params.append(mp)
+                squashed.append(spec.squash(cfg, fp))
 
-        # ---- action selection ----
-        logits = mlp_head(self.action_selection(enriched, generator),
-                          self.fc1, self.fc2)
-        pdf = torch.softmax(logits, dim=-1) + 1e-37
-        pdf = pdf * (1 - cfg.exploration) + cfg.exploration / n_filters
-        pdf = pdf / (pdf.sum(dim=1, keepdim=True) + 1e-30)
-        entropy = torch.sum(-pdf * torch.log(pdf), dim=1, keepdim=True)
+            # ---- action selection ----
+            logits = mlp_head(self.action_selection(enriched, generator),
+                              self.fc1, self.fc2)
+            pdf = torch.softmax(logits, dim=-1) + 1e-37
+            pdf = pdf * (1 - cfg.exploration) + cfg.exploration / n_filters
+            pdf = pdf / (pdf.sum(dim=1, keepdim=True) + 1e-30)
+            entropy = torch.sum(-pdf * torch.log(pdf), dim=1, keepdim=True)
 
-        random_filter_id = pdf_sample(pdf, selection_noise)
-        max_filter_id = torch.argmax(pdf, dim=1).to(torch.int32)
-        sel = random_filter_id if train else max_filter_id
-        if selected_filter_id is not None:
-            forced = torch.as_tensor(selected_filter_id, dtype=torch.int32,
-                                     device=sel.device).expand_as(sel)
-            sel = torch.where(forced >= 0, forced, sel)
+            random_filter_id = pdf_sample(pdf, selection_noise)
+            max_filter_id = torch.argmax(pdf, dim=1).to(torch.int32)
+            sel = random_filter_id if train else max_filter_id
+            if selected_filter_id is not None:
+                if not isinstance(selected_filter_id, torch.Tensor):
+                    count("host_read.upload.agent")
+                forced = torch.as_tensor(selected_filter_id, dtype=torch.int32,
+                                         device=sel.device).expand_as(sel)
+                sel = torch.where(forced >= 0, forced, sel)
 
-        onehot = F.one_hot(sel.long(), n_filters).to(pdf.dtype)
+            onehot = F.one_hot(sel.long(), n_filters).to(pdf.dtype)
         surrogate = torch.sum(onehot * torch.log(pdf + 1e-10), dim=1,
                               keepdim=True)
 
@@ -140,9 +144,12 @@ class Agent(nn.Module):
                                          mask_list, rows=rows)
         else:
             raise ValueError(f"unknown render mode {render!r}")
-        out = draw(x)
-        high_res_out = (None if high_res is None
-                        else draw(high_res, high_res_rows))
+        with span("agent.render"):
+            out = draw(x)
+        high_res_out = None
+        if high_res is not None:
+            with span("agent.render"):
+                high_res_out = draw(high_res, high_res_rows)
 
         # ---- new states ----
         step = states[:, STATE_STEP_DIM:STATE_STEP_DIM + 1]
@@ -162,6 +169,7 @@ class Agent(nn.Module):
                            * (-entropy + cfg.log_n_filters))
         runtime_penalty = 0.0
         if cfg.filter_runtime_penalty:
+            count("host_read.upload.agent")
             runtime = torch.as_tensor(cfg.filters_runtime, dtype=pdf.dtype,
                                       device=pdf.device)
             runtime_penalty = (cfg.filter_runtime_penalty_lambda

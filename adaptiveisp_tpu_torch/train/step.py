@@ -13,10 +13,11 @@ networks use flax BatchNorm statistics (``policy/nets.py``); the critic runs
 twice, its running statistics chained from the first call to the second.
 Per-network clip by global norm and Adam live in :mod:`.optim`.
 
-The phases run under ``torch.profiler.record_function`` scopes named as the
-JAX step's ``named_scope``s (``agent_fwd``, ``yolo_input``,
-``yolo_retouch``, ``value_net``, ``optimizer``): a trace of the step
-(``obs/trace.py``) puts each kernel, the backward's too, in its component.
+The phases run under spans (``obs.profile.span``: ``record_function``
+scopes while a profiler records) named as the JAX step's ``named_scope``s
+(``agent_fwd``, ``yolo_input``, ``yolo_retouch``, ``value_net``,
+``optimizer``): a trace of the step (``obs/trace.py``) puts each kernel, the
+backward's too, in its component.
 """
 
 from __future__ import annotations
@@ -25,10 +26,10 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from adaptiveisp_tpu_torch.detect.loss import LossHyp, per_image_loss_batch
 from adaptiveisp_tpu_torch.detect.model import frozen
+from adaptiveisp_tpu_torch.obs.profile import span
 from adaptiveisp_tpu_torch.ops.math import clip
 from adaptiveisp_tpu_torch.policy.states import (
     STATE_STEP_DIM,
@@ -94,7 +95,7 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         else:
             imgs, z, states, targets, tmask = batch
 
-        with record_function("agent_fwd"):
+        with span("agent_fwd"):
             retouch, new_states, surrogate, penalty, _, info = agent(
                 imgs, z, states, progress, train=True, generator=generator)
         stopped = new_states[:, STATE_STOPPED_DIM:STATE_STOPPED_DIM + 1]
@@ -104,10 +105,10 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         if cached_input_loss:
             detect_input_loss = loss_in
         else:
-            with torch.no_grad(), record_function("yolo_input"):
+            with torch.no_grad(), span("yolo_input"):
                 detect_input_loss, _ = _detector_loss(
                     yolo, imgs, targets, tmask, anchors_grid, hyp, cfg)
-        with record_function("yolo_retouch"):
+        with span("yolo_retouch"):
             detect_retouch_loss, retouch_comps = _detector_loss(
                 yolo, retouch, targets, tmask, anchors_grid, hyp, cfg)
         if mark:
@@ -119,7 +120,7 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         if cfg.use_penalty:
             reward = reward - penalty
 
-        with record_function("value_net"):
+        with span("value_net"):
             old_value = value(imgs, states)
             new_value = value(retouch, new_states)
         clear_final = (new_states[:, STATE_STEP_DIM:STATE_STEP_DIM + 1]
@@ -153,7 +154,7 @@ def make_train_step(yolo, cfg, tcfg, anchors_grid, hyp: LossHyp,
         (value_loss + agent_loss).backward()
         if mark:
             mark("backward")
-        with record_function("optimizer"):
+        with span("optimizer"):
             state.agent_opt.step()
             state.value_opt.step()
         state.step += 1

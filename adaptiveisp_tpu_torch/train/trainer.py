@@ -21,6 +21,14 @@ batch, the step of :func:`.mesh.shard_train_step` (global BatchNorm,
 dropout and metrics; gradients averaged before the clip), the device pool
 sharded by slot.  Rank 0 alone prints, logs, dumps validation
 trajectories and writes checkpoints, the others waiting at a barrier.
+
+Spans (only while a profiler records, ``obs/profile.py``):
+``trainer.iteration`` around each iteration, and inside it
+``trainer.upload`` (the batch's targets and host arrays onto the device),
+``trainer.fetch`` (the host fetch, counted as ``host_read.trainer``),
+``trainer.log`` (history, writer, printing), ``trainer.validate``,
+``trainer.checkpoint`` and ``train_step`` (the step); the pool's spans and
+the step's scopes nest inside.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from adaptiveisp_tpu_torch.detect.model import anchors_in_grid_units
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC
 from adaptiveisp_tpu_torch.eval.rollout import no_pipeline, rollout
 from adaptiveisp_tpu_torch.obs.logging import MetricWriter, save_img
+from adaptiveisp_tpu_torch.obs.profile import count, span
 from adaptiveisp_tpu_torch.ops.bank import short_names
 from adaptiveisp_tpu_torch.policy.states import get_initial_states
 from adaptiveisp_tpu_torch.train import checkpoint as ckpt_lib
@@ -72,6 +81,7 @@ def fetch_metrics(metrics, new_states):
     """One device-to-host transfer: the scalar metrics (``SCALARS``), the
     selections and the new states -> (dict of NumPy values, states)."""
     n = new_states.shape[0]
+    count("host_read.trainer")
     packed = torch.cat([
         torch.stack([metrics[k].to(torch.float32) for k in SCALARS]),
         metrics["selected_filter"].to(torch.float32),
@@ -215,6 +225,7 @@ class Trainer:
 
                 def pool_loss_fn(images, labels):
                     targets, tmask = pad_targets(labels, self.t_max)
+                    count("host_read.upload.pool", 2)
                     return raw_loss(images,
                                     torch.from_numpy(targets).to(dev),
                                     torch.from_numpy(tmask).to(dev))
@@ -235,7 +246,9 @@ class Trainer:
             print(f"Resumed from {path_or_dir} @ step {step}")
 
     def _to_device(self, *arrays):
-        """This rank's rows of host arrays, on its device."""
+        """This rank's rows of host arrays, on its device (blocking
+        uploads)."""
+        count("host_read.upload.trainer", len(arrays))
         if self.mesh is not None:
             return mesh_lib.shard_batch(self.mesh, tuple(
                 np.asarray(a) for a in arrays))
@@ -266,113 +279,139 @@ class Trainer:
         # keep advancing and the progress-annealed penalties don't rewind
         start_it = int(self.state.step)
         for it in range(start_it, max_iter + 1):
-            mark("start")
-            k = it - start_it  # iterations of this run (running means, ETA)
-            progress = it / max(tcfg.max_iter_step, 1)
-            if device_pool:
-                idx, imgs, states_np, labels, paths, shapes, z = (
-                    self.device_replay.sample(tcfg.batch_size))
-                targets, tmask = pad_targets(labels, self.t_max)
-                batch = (imgs,) + self._to_device(z, states_np, targets,
-                                                  tmask)
-                if self.cached_reward:
-                    batch = batch + (self.device_replay.sampled_loss(idx),)
-            else:
-                feed = self.replay.get_feed_dict_and_states(tcfg.batch_size)
-                targets, tmask = pad_targets(feed["label"], self.t_max)
-                batch = self._to_device(feed["im"], feed["z"], feed["state"],
-                                        targets, tmask)
-            mark("sample")
-
-            out = self.train_step(self.state, batch, self.generator,
-                                  progress, mark)
-            self.state = out.state
-
-            # ---- divergence guard + pool update ------------------------
-            if device_pool:
-                # one host fetch: metrics and the small state matrix; the
-                # retouched images stay on the device
-                metrics, new_states = fetch_metrics(out.metrics,
-                                                    out.new_states)
-                mean_b = float(metrics["retouch_mean"])
-                diverged = (not metrics["retouch_finite"]
-                            or mean_b < 0.01
-                            or mean_b > tcfg.max_brightness)
-                if diverged:
-                    self.divergence_count += 1
-                    if self.is_main:
-                        print(f"retouch diverged (mean={mean_b:.4f}); "
-                              f"refreshing slots")
-                self.device_replay.replace(
-                    idx, out.retouch, new_states, diverged=diverged,
-                    retouch_loss=(out.metrics["retouch_loss_per_image"]
-                                  if self.cached_reward else None))
-            else:
-                retouch = out.retouch
-                if self.mesh is not None:
-                    retouch = mesh_lib.all_gather(self.mesh, retouch)
-                retouch = retouch.cpu().numpy()
-                metrics, new_states = fetch_metrics(out.metrics,
-                                                    out.new_states)
-                mean_b = float(retouch.mean())
-                if (not np.isfinite(retouch).all() or mean_b < 0.01
-                        or mean_b > tcfg.max_brightness):
-                    self.divergence_count += 1
-                    if self.is_main:
-                        print(f"retouch diverged (mean={mean_b:.4f}); "
-                              f"refilling pool")
-                    self.replay.fill_pool()
+            with span("trainer.iteration"):
+                mark("start")
+                k = it - start_it  # iterations of this run (means, ETA)
+                progress = it / max(tcfg.max_iter_step, 1)
+                if device_pool:
+                    idx, imgs, states_np, labels, paths, shapes, z = (
+                        self.device_replay.sample(tcfg.batch_size))
+                    with span("trainer.upload"):
+                        targets, tmask = pad_targets(labels, self.t_max)
+                        batch = (imgs,) + self._to_device(
+                            z, states_np, targets, tmask)
+                        if self.cached_reward:
+                            batch = batch + (
+                                self.device_replay.sampled_loss(idx),)
                 else:
-                    self.replay.replace_memory(
-                        list(retouch), feed["label"], feed["path"],
-                        feed["shape"], list(new_states))
-            mark("writeback")
-            mloss_agent = (mloss_agent * k + float(metrics["agent_loss"])) / (k + 1)
-            mloss_value = (mloss_value * k + float(metrics["value_loss"])) / (k + 1)
-            self.history.append({
-                "reward": float(metrics["reward"]),
-                "penalty": float(metrics["penalty"]),
+                    feed = self.replay.get_feed_dict_and_states(
+                        tcfg.batch_size)
+                    with span("trainer.upload"):
+                        targets, tmask = pad_targets(feed["label"], self.t_max)
+                        batch = self._to_device(feed["im"], feed["z"],
+                                                feed["state"], targets, tmask)
+                mark("sample")
+
+                # the step's own host work (the reward, the critic's terms,
+                # the backward pass) apart from the loop's
+                with span("train_step"):
+                    out = self.train_step(self.state, batch, self.generator,
+                                          progress, mark)
+                self.state = out.state
+
+                # ---- divergence guard + pool update ------------------------
+                if device_pool:
+                    # one host fetch: metrics and the small state matrix; the
+                    # retouched images stay on the device
+                    with span("trainer.fetch"):
+                        metrics, new_states = fetch_metrics(out.metrics,
+                                                            out.new_states)
+                    mean_b = float(metrics["retouch_mean"])
+                    diverged = (not metrics["retouch_finite"]
+                                or mean_b < 0.01
+                                or mean_b > tcfg.max_brightness)
+                    if diverged:
+                        self.divergence_count += 1
+                        if self.is_main:
+                            print(f"retouch diverged (mean={mean_b:.4f}); "
+                                  f"refreshing slots")
+                    self.device_replay.replace(
+                        idx, out.retouch, new_states, diverged=diverged,
+                        retouch_loss=(out.metrics["retouch_loss_per_image"]
+                                      if self.cached_reward else None))
+                else:
+                    with span("trainer.fetch"):
+                        retouch = out.retouch
+                        if self.mesh is not None:
+                            retouch = mesh_lib.all_gather(self.mesh, retouch)
+                        count("host_read.trainer")
+                        retouch = retouch.cpu().numpy()
+                        metrics, new_states = fetch_metrics(out.metrics,
+                                                            out.new_states)
+                    mean_b = float(retouch.mean())
+                    if (not np.isfinite(retouch).all() or mean_b < 0.01
+                            or mean_b > tcfg.max_brightness):
+                        self.divergence_count += 1
+                        if self.is_main:
+                            print(f"retouch diverged (mean={mean_b:.4f}); "
+                                  f"refilling pool")
+                        self.replay.fill_pool()
+                    else:
+                        self.replay.replace_memory(
+                            list(retouch), feed["label"], feed["path"],
+                            feed["shape"], list(new_states))
+                mark("writeback")
+                with span("trainer.log"):
+                    mloss_agent, mloss_value = self._log(
+                        it, k, max_iter, print_freq, metrics, mloss_agent,
+                        mloss_value, t_start)
+                if (it > 0 and it % cfg.val_freq == 0
+                        and self.val_feed is not None and self.is_main):
+                    with span("trainer.validate"):
+                        self.validate_trajectories(it)
+                mark("validate")
+                if it > 0 and it % cfg.save_model_freq == 0:
+                    with span("trainer.checkpoint"):
+                        if self.is_main:
+                            ckpt_lib.save(self.ckpt_dir, self.state, it)
+                            # the reference's weights-only artifact for
+                            # inference
+                            ckpt_lib.save_weights_only(
+                                os.path.join(self.ckpt_dir,
+                                             f"weights_iter_{it}.pt"),
+                                self.state)
+                        mesh_lib.sync_global_devices(self.mesh)
+                mark("end")
+        return self.state
+
+    def _log(self, it, k, max_iter, print_freq, metrics, mloss_agent,
+             mloss_value, t_start):
+        """The iteration's history row, writer scalars and printed line;
+        returns the running mean losses."""
+        cfg = self.cfg
+        mloss_agent = ((mloss_agent * k + float(metrics["agent_loss"]))
+                       / (k + 1))
+        mloss_value = ((mloss_value * k + float(metrics["value_loss"]))
+                       / (k + 1))
+        self.history.append({
+            "reward": float(metrics["reward"]),
+            "penalty": float(metrics["penalty"]),
+            "agent_loss": float(metrics["agent_loss"]),
+            "value_loss": float(metrics["value_loss"]),
+            "detect_input_loss": float(metrics["detect_input_loss"]),
+            "detect_retouch_loss": float(metrics["detect_retouch_loss"]),
+        })
+        if self.writer is not None and it % cfg.summary_freq == 0:
+            self.writer.scalars({
                 "agent_loss": float(metrics["agent_loss"]),
                 "value_loss": float(metrics["value_loss"]),
-                "detect_input_loss": float(metrics["detect_input_loss"]),
-                "detect_retouch_loss": float(
-                    metrics["detect_retouch_loss"]),
-            })
-
-            if self.writer is not None and it % cfg.summary_freq == 0:
-                self.writer.scalars({
-                    "agent_loss": float(metrics["agent_loss"]),
-                    "value_loss": float(metrics["value_loss"]),
-                    "detect_loss": float(metrics["detect_retouch_loss"]),
-                    "reward": float(metrics["reward"]),
-                    "penalty": float(metrics["penalty"]),
-                }, it)
-            if it % print_freq == 0 and self.is_main:
-                sel = metrics["selected_filter"]
-                names = [self.filter_names[int(s)] for s in sel[:4]]
-                stats = self.replay.stats()
-                print(datetime.datetime.now().strftime("%H:%M:%S"),
-                      f"[{it}/{max_iter}]",
-                      f"agent {mloss_agent:.4f} value {mloss_value:.4f}",
-                      f"reward {float(metrics['reward']):.3e}",
-                      f"penalty {float(metrics['penalty']):.3e}",
-                      f"sel {names}",
-                      f"pool {stats['size']}/{stats['avg_trajectory']:.2f}",
-                      f"({(time.time() - t_start) / (k + 1):.2f}s/it)")
-            if (it > 0 and it % cfg.val_freq == 0
-                    and self.val_feed is not None and self.is_main):
-                self.validate_trajectories(it)
-            mark("validate")
-            if it > 0 and it % cfg.save_model_freq == 0:
-                if self.is_main:
-                    ckpt_lib.save(self.ckpt_dir, self.state, it)
-                    # the reference's weights-only artifact for inference
-                    ckpt_lib.save_weights_only(
-                        os.path.join(self.ckpt_dir, f"weights_iter_{it}.pt"),
-                        self.state)
-                mesh_lib.sync_global_devices(self.mesh)
-            mark("end")
-        return self.state
+                "detect_loss": float(metrics["detect_retouch_loss"]),
+                "reward": float(metrics["reward"]),
+                "penalty": float(metrics["penalty"]),
+            }, it)
+        if it % print_freq == 0 and self.is_main:
+            sel = metrics["selected_filter"]
+            names = [self.filter_names[int(s)] for s in sel[:4]]
+            stats = self.replay.stats()
+            print(datetime.datetime.now().strftime("%H:%M:%S"),
+                  f"[{it}/{max_iter}]",
+                  f"agent {mloss_agent:.4f} value {mloss_value:.4f}",
+                  f"reward {float(metrics['reward']):.3e}",
+                  f"penalty {float(metrics['penalty']):.3e}",
+                  f"sel {names}",
+                  f"pool {stats['size']}/{stats['avg_trajectory']:.2f}",
+                  f"({(time.time() - t_start) / (k + 1):.2f}s/it)")
+        return mloss_agent, mloss_value
 
     # ------------------------------------------------------------------ #
     def validate_trajectories(self, it: int, max_images: int = 2):
@@ -385,6 +424,9 @@ class Trainer:
         agent.eval()   # BatchNorm on its running statistics, no dropout
         try:
             for b in range(min(max_images, len(feed["im"]))):
+                # three uploads and three reads back per image
+                count("host_read.upload.trainer", 3)
+                count("host_read.trainer", 3)
                 img = torch.from_numpy(feed["im"][b:b + 1]).to(dev)
                 noises = torch.from_numpy(np.stack(
                     [np.random.RandomState(it * 10 + i).uniform(
