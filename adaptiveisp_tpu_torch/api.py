@@ -39,12 +39,13 @@ from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC, resolve_spec
 from adaptiveisp_tpu_torch.detect.tta import forward_augment
 from adaptiveisp_tpu_torch.eval.rollout import (
     RolloutResult,
+    ServedRollout,
     no_pipeline,
-    rollout,
+    upload,
 )
-from adaptiveisp_tpu_torch.obs.profile import count, span
+from adaptiveisp_tpu_torch.obs.profile import span
 from adaptiveisp_tpu_torch.policy.agent import Agent
-from adaptiveisp_tpu_torch.policy.states import get_initial_states, get_noise
+from adaptiveisp_tpu_torch.policy.states import get_noise
 from adaptiveisp_tpu_torch.policy.value import Value
 
 
@@ -85,29 +86,30 @@ class AdaptiveISP:
 
     def __post_init__(self):
         self._rng = np.random.RandomState(0)
+        self._served = ServedRollout()
 
-    def _inputs(self, images, seed):
-        images = _as_images(images, self.device)
-        n = images.shape[0]
+    def _noises(self, n, seed):
+        """The steps' noise drawn on the host, on the device without a
+        wait for the stream."""
         rng = np.random.RandomState(seed) if seed is not None else self._rng
         noises = np.stack([get_noise(rng, n, self.cfg.z_dim, self.cfg.z_type)
                            for _ in range(self.steps)])
-        states = get_initial_states(n, self.cfg.num_state_dim)
-        count("host_read.upload.rollout", 2)
-        return (images, torch.as_tensor(noises, device=self.device),
-                torch.as_tensor(states, device=self.device))
+        return upload(torch.from_numpy(noises), self.device)
 
     def process_with_trace(self, images,
                            pipeline: Optional[Sequence[int]] = None,
                            seed: Optional[int] = None,
                            record_steps: bool = True) -> RolloutResult:
         """Full rollout record; ``pipeline`` holds one forced filter id per
-        step (None or -1 for the agent's choice)."""
-        images, noises, states = self._inputs(images, seed)
+        step (None or -1 for the agent's choice).  Without recorded steps,
+        a CUDA batch of a shape seen before replays a CUDA graph
+        (``eval.rollout.ServedRollout``)."""
+        images = _as_images(images, self.device)
+        noises = self._noises(images.shape[0], seed)
         pipe = (no_pipeline(self.steps) if pipeline is None
                 else [-1 if p is None else int(p) for p in pipeline])
-        return rollout(self.agent, images, noises, states, pipe,
-                       record_steps=record_steps)
+        return self._served(self.agent, images, noises, pipe,
+                            record_steps=record_steps)
 
     def process(self, images, pipeline: Optional[Sequence[int]] = None,
                 seed: Optional[int] = None):

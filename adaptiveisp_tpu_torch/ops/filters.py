@@ -16,7 +16,6 @@ import math
 
 import torch
 
-from adaptiveisp_tpu_torch.obs.profile import count
 from adaptiveisp_tpu_torch.ops import denoise as _denoise
 from adaptiveisp_tpu_torch.ops import sharpen as _sharpen
 from adaptiveisp_tpu_torch.ops.math import (
@@ -57,9 +56,8 @@ def apply_gamma(cfg, img, param):
 # Improved white balance: channel gains, R pinned, luminance-normalised
 def squash_improved_wb(cfg, feat):
     log_wb_range = 0.5
-    count("host_read.upload.agent")
-    mask = torch.tensor([[0.0, 1.0, 1.0]], dtype=feat.dtype,
-                        device=feat.device)
+    mask = torch.ones_like(feat[:1])   # [0, 1, 1], filled on the device
+    mask[:, 0] = 0.0
     scale = torch.exp(tanh_range(-log_wb_range, log_wb_range)(feat * mask))
     lum = 1e-5 + 0.27 * scale[:, 0] + 0.67 * scale[:, 1] + 0.06 * scale[:, 2]
     return scale * (1.0 / lum)[:, None]

@@ -8,10 +8,8 @@ Off by default (``cfg.masking = False``); the roster path still calls
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from adaptiveisp_tpu_torch.obs.profile import count
 from adaptiveisp_tpu_torch.ops.math import rgb2lum, tanh_range
 
 FILTER_INPUT_RANGE = 5.0
@@ -21,14 +19,13 @@ NUM_MASK_PARAMETERS = 6
 def mask_grid(h: int, w: int, dtype=torch.float32, device=None):
     """Centered coordinate grid normalised by the shorter edge."""
     shorter = min(h, w)
-    i = (np.arange(h, dtype=np.float64) + (shorter - h) / 2.0) / shorter - 0.5
-    j = (np.arange(w, dtype=np.float64) + (shorter - w) / 2.0) / shorter - 0.5
-    count("host_read.upload.render", 2)
-    gy = torch.as_tensor(np.broadcast_to(i[:, None], (h, w)).copy(),
-                         dtype=dtype, device=device)
-    gx = torch.as_tensor(np.broadcast_to(j[None, :], (h, w)).copy(),
-                         dtype=dtype, device=device)
-    return gy, gx
+
+    def axis(n):   # in float64 on the device, as numpy's, then cast
+        return ((torch.arange(n, dtype=torch.float64, device=device)
+                 + (shorter - n) / 2.0) / shorter - 0.5).to(dtype)
+
+    i, j = axis(h), axis(w)
+    return i[:, None].expand(h, w), j[None, :].expand(h, w)
 
 
 def get_mask(cfg, img, mask_parameters=None, row_window=None):

@@ -65,6 +65,9 @@ class Agent(nn.Module):
         for s in self.specs:
             self.add_module(s.short_name, FilterHead(
                 cfg.feature_extractor_dims, cfg.fc1_size, s.n_params))
+        if cfg.filter_runtime_penalty:   # on the device, made once
+            self.register_buffer("runtime", torch.tensor(
+                cfg.filters_runtime, dtype=torch.float64), persistent=False)
         flax_init_(self)
 
     def forward(self, x, z, states, progress, train: bool = False,
@@ -169,12 +172,9 @@ class Agent(nn.Module):
                            * (-entropy + cfg.log_n_filters))
         runtime_penalty = 0.0
         if cfg.filter_runtime_penalty:
-            count("host_read.upload.agent")
-            runtime = torch.as_tensor(cfg.filters_runtime, dtype=pdf.dtype,
-                                      device=pdf.device)
             runtime_penalty = (cfg.filter_runtime_penalty_lambda
-                               * torch.sum(onehot * runtime, dim=1,
-                                           keepdim=True))
+                               * torch.sum(onehot * self.runtime.to(
+                                   pdf.dtype), dim=1, keepdim=True))
 
         if cfg.clamp:
             out = clip(out, 0.0, 5.0)

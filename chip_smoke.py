@@ -981,7 +981,9 @@ def phase_serving():
         out = isp.process(images, pipeline=pipeline, seed=2)
         return out, det.detect(out, **nms)
 
-    for pipe in (FORCED, None):  # warm-up: cuDNN plans, kernel load
+    # warm-up: cuDNN plans, kernel load, and each pipeline's CUDA graph
+    # (captured on its second call)
+    for pipe in (FORCED, None, FORCED, None):
         serve(pipe)
     torch.cuda.synchronize()
 

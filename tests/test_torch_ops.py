@@ -151,3 +151,48 @@ def test_masked_step_matches_jax():
     want = jbank.apply_one(jcfg, jspec, jnp.asarray(img), jnp.asarray(p),
                            jnp.asarray(mp))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_improved_wb_squash_is_the_masked_one_bit_for_bit():
+    """The white balance's mask [0, 1, 1] is filled on the device: values
+    and gradients bit for bit those of the mask uploaded from the host
+    that it replaces, signed zeros included."""
+    from adaptiveisp_tpu_torch.ops import filters
+    from adaptiveisp_tpu_torch.ops.math import tanh_range
+
+    def masked(feat):   # the former squash
+        mask = torch.tensor([[0.0, 1.0, 1.0]], dtype=feat.dtype)
+        scale = torch.exp(tanh_range(-0.5, 0.5)(feat * mask))
+        lum = (1e-5 + 0.27 * scale[:, 0] + 0.67 * scale[:, 1]
+               + 0.06 * scale[:, 2])
+        return scale * (1.0 / lum)[:, None]
+
+    feat = torch.from_numpy(np.random.RandomState(14).randn(
+        6, 3).astype(np.float32) * 3)
+    cot = torch.from_numpy(np.random.RandomState(15).randn(
+        6, 3).astype(np.float32))
+    outs, grads = [], []
+    for fn in (masked, lambda f: filters.squash_improved_wb(CFG, f)):
+        f = feat.clone().requires_grad_(True)
+        out = fn(f)
+        out.backward(cot)
+        outs.append(out.detach())
+        grads.append(f.grad)
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    assert torch.equal(grads[0].view(torch.int32),
+                       grads[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w", [(16, 24), (37, 20)])
+def test_mask_grid_is_the_float64_grid_bit_for_bit(h, w):
+    """The mask grid is made on the device in float64, then cast: bit for
+    bit the numpy grid it replaces."""
+    shorter = min(h, w)
+    i = (np.arange(h, dtype=np.float64) + (shorter - h) / 2.0) / shorter - 0.5
+    j = (np.arange(w, dtype=np.float64) + (shorter - w) / 2.0) / shorter - 0.5
+    gy, gx = masks.mask_grid(h, w)
+    assert gy.shape == gx.shape == (h, w)
+    np.testing.assert_array_equal(
+        gy.numpy(), np.broadcast_to(i[:, None], (h, w)).astype(np.float32))
+    np.testing.assert_array_equal(
+        gx.numpy(), np.broadcast_to(j[None, :], (h, w)).astype(np.float32))

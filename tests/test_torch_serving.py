@@ -28,6 +28,7 @@ from adaptiveisp_tpu_torch.convert import agent_from_flax, yolo_from_flax
 from adaptiveisp_tpu_torch.detect import metrics as tmetrics
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_TINY_SPEC
 from adaptiveisp_tpu_torch.eval.rollout import rollout
+from adaptiveisp_tpu_torch.policy.states import STATE_STEP_DIM
 from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 
 CFG, JCFG = Config(), JConfig()
@@ -119,10 +120,13 @@ def test_serving_chain_matches_jax(chains, pipeline):
     np.testing.assert_array_equal(det_t[..., 5].numpy(), det_j[..., 5])
 
 
-def test_rollout_early_exit_matches_jax(chains):
-    """One step past ``test_steps``: every sample has stopped, so the last
-    step skips the agent (selection -1, zero pdf and params) while image and
-    state stay frozen, as in JAX's early-exit scan."""
+_JAX_ROLLOUTS = {}
+
+
+def _early_exit_against_jax(chains, first_stopped):
+    """``STEPS + 1`` steps of the port's rollout and JAX's on the same
+    inputs; with ``first_stopped`` the first sample starts at its last
+    step.  Returns the port's result."""
     (_, av, _, _), (isp, _), jagent = chains
     steps = STEPS + 1
     images = np.random.RandomState(SEED + 1).uniform(
@@ -130,7 +134,11 @@ def test_rollout_early_exit_matches_jax(chains):
     noises = np.random.RandomState(SEED + 2).rand(
         steps, 2, JCFG.z_dim).astype(np.float32)
     states = get_initial_states(2, JCFG.num_state_dim)
-    res_j = jit_rollout(jagent, steps)(
+    if first_stopped:
+        states[0, STATE_STEP_DIM] = JCFG.test_steps - 1
+    if steps not in _JAX_ROLLOUTS:   # one compile for both tests
+        _JAX_ROLLOUTS[steps] = jit_rollout(jagent, steps)
+    res_j = _JAX_ROLLOUTS[steps](
         av, jnp.asarray(images), jnp.asarray(noises), jnp.asarray(states),
         jnp.full((steps,), -1, jnp.int32))
     res_t = rollout(isp.agent, torch.from_numpy(images),
@@ -146,6 +154,27 @@ def test_rollout_early_exit_matches_jax(chains):
                                atol=1e-4)
     np.testing.assert_allclose(res_t.image.numpy(), np.asarray(res_j.image),
                                atol=1e-4)
+    np.testing.assert_array_equal(res_t.states.numpy(),
+                                  np.asarray(res_j.states))
+    return res_t
+
+
+def test_rollout_early_exit_matches_jax(chains):
+    """One step past ``test_steps``: every sample has stopped, so the last
+    step gives selection -1, zero pdf and params while image and state stay
+    frozen, as in JAX's early-exit scan; the port decides it on the
+    device."""
+    _early_exit_against_jax(chains, first_stopped=False)
+
+
+def test_rollout_partial_stop_matches_jax(chains):
+    """The first sample starts at its last step, so it stops after step 0
+    while the other runs on: the stop masks freeze it (selection -1) and
+    zero nothing, until every sample has stopped at the last step."""
+    res = _early_exit_against_jax(chains, first_stopped=True)
+    assert (res.selected[1:, 0] == -1).all()
+    assert (res.selected[:-1, 1] >= 0).all()
+    assert res.pdfs[1:-1, 0].any()
 
 
 def test_composed_rollout_detection_map_parity(chains):

@@ -2,10 +2,11 @@
 ``count``) on the CPU at tiny shapes: off without a profiler; under one, a
 served batch (``process_with_trace`` and ``Detector.detect``) and one
 ``Trainer`` iteration give a Chrome trace whose spans nest as the layers
-do, the counters count the rollout's stop reads and NMS's flag reads,
+do, the counters count the eager rollout and NMS's flag reads,
 ``trace()`` writes ``counts.json``, and the train step's component buckets
 are those its five scopes alone give.  On the card (marked ``cuda``), the
-counters against ``torch.cuda.set_sync_debug_mode("warn")``.  Then the
+counters against ``torch.cuda.set_sync_debug_mode("warn")`` on a replayed
+rollout (``tests/test_torch_rollout_graph.py`` has the replay's).  Then the
 benchmark's readers of the spans and counters on hand-built layers.
 """
 
@@ -130,7 +131,6 @@ def test_served_spans_nest_as_the_layers(served):
     assert _parents(spans, "rollout") == {None}
     assert _parents(spans, "detect") == {None}
     for child, parent in [("rollout.step", "rollout"),
-                          ("rollout.stop_read", "rollout.step"),
                           ("agent.nets", "rollout.step"),
                           ("agent.render", "rollout.step"),
                           ("detect.forward", "detect"),
@@ -141,15 +141,22 @@ def test_served_spans_nest_as_the_layers(served):
     for name in short_names(FAST):
         assert _parents(spans, "render." + name) == {"agent.render"}, name
     names = [n for n, _ in spans]
+    assert "rollout.stop_read" not in names   # the early exit reads nothing
     assert names.count("rollout.step") == STEPS
     assert names.count("render." + short_names(FAST)[0]) == STEPS
 
 
 def test_served_counters(served):
     counts = served["counts"]
-    assert counts["host_read.rollout"] == STEPS   # one stop read a step
+    assert counts["rollout.eager"] == 1   # a CPU batch: no graph
+    assert "rollout.graph" not in counts
+    # the stop mask stays on the device; the noise goes through pinned
+    # memory, states are filled there, forced ids and constants are made
+    # there: the rollout neither reads back nor uploads with a wait
+    assert not [k for k in counts if k.startswith(
+        ("host_read.rollout", "host_read.upload.rollout",
+         "host_read.upload.agent", "host_read.render"))]
     assert counts["host_read.nms"] >= 1
-    assert counts["host_read.upload.rollout"] == 2   # noises and states
 
 
 def test_trace_zeroes_the_counts_and_writes_them(tmp_path):
@@ -307,11 +314,13 @@ def test_the_counters_count_every_synchronizing_call(tmp_path):
     isp = api.load_adaptive_isp(cfg=FAST, steps=STEPS, device="cuda")
     det = api.load_detector(spec=MINI_SPEC, device="cuda")
     x = torch.rand(2, 64, 64, 3, device="cuda")
-    det.detect(isp.process_with_trace(x, seed=2, record_steps=False).image,
-               **NMS)
+    for seed in (1, 2):   # eager, then captured: the served batches replay
+        det.detect(isp.process_with_trace(x, seed=seed,
+                                          record_steps=False).image, **NMS)
     syncs, counted = _synchronizing_calls(lambda: det.detect(
         isp.process_with_trace(x, seed=3, record_steps=False).image, **NMS))
     assert syncs == counted > 0
+    assert profile.COUNTS["rollout.graph"] == 1
     tr = _tiny_trainer(tmp_path, "cuda", save_model_freq=10 ** 9)
     try:
         syncs, counted = _synchronizing_calls(lambda: tr.train(max_steps=1))
@@ -350,6 +359,15 @@ TRAIN_GAPS = [("trainer.iteration", 0.02), ("pool.seed_loss", 0.01),
      {"trace": {"gaps": []}, "traced_iters": 4},
      {"host_read.trainer": 4, "host_read.upload.pool": 20,
       "host_read.upload.loss": 36, "other": 9}, 15.0),
+    ("rollout_graph_share.infer",
+     {"trace": {"gaps": []}, "traced_images": 32, "batch": 16},
+     {"rollout.graph": 2, "host_read.nms": 8}, 100.0),
+    ("rollout_graph_share.infer",
+     {"trace": {"gaps": []}, "traced_images": 64, "batch": 16},
+     {"rollout.graph": 3, "rollout.eager": 1}, 75.0),
+    ("rollout_graph_share.infer",
+     {"trace": {"gaps": []}, "traced_images": 32, "batch": 16},
+     {"rollout.eager": 2}, 0.0),
 ])
 def test_readers(monkeypatch, name, layer, counts, want):
     monkeypatch.setattr(profile, "COUNTS", dict(counts))
@@ -362,3 +380,11 @@ def test_readers(monkeypatch, name, layer, counts, want):
     monkeypatch.delattr(profile, "COUNTS")
     monkeypatch.delattr(profile, "span")
     assert read(layer) is None
+
+
+def test_graph_share_reads_nothing_without_its_counters(monkeypatch):
+    """A program with counters but without the rollout's (the parent of
+    the graph runner) leaves the share out."""
+    monkeypatch.setattr(profile, "COUNTS", {"host_read.nms": 8})
+    read = harness.metric_reader("rollout_graph_share.infer")
+    assert read({"traced_images": 32, "batch": 16}) is None
