@@ -40,7 +40,7 @@ from adaptiveisp_tpu.detect.spec import YOLOV3_TINY_SPEC as JTINY
 from adaptiveisp_tpu_torch import classify as cls
 from adaptiveisp_tpu_torch.convert import classifier_from_flax
 from adaptiveisp_tpu_torch.detect import segment as seg
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 SIZE, NC = 64, 3
 SPEC = {

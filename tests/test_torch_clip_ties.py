@@ -19,7 +19,7 @@ from adaptiveisp_tpu.ops import bank as jbank
 from adaptiveisp_tpu_torch.config import Config
 from adaptiveisp_tpu_torch.ops import bank as tbank
 from adaptiveisp_tpu_torch.ops.math import clip, clip_grad_mask
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 POINTS = np.array([-1.0, 0.0, 0.001, 0.3, 1.0, 2.0, 5.0], np.float32)
 

@@ -30,7 +30,7 @@ from adaptiveisp_tpu_torch.data import letterbox as tletterbox
 from adaptiveisp_tpu_torch.data.replay import ReplayMemory
 from adaptiveisp_tpu_torch.ops import bank
 from test_torch_data import _feeds_equal, _same_record, _toy_set
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 
 def test_short_names_and_param_counts_match_jax():

@@ -23,7 +23,7 @@ import torch
 
 from adaptiveisp_tpu.ops import denoise as jden
 from adaptiveisp_tpu_torch.ops import denoise as tden
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 RNG_SEED = 31
 

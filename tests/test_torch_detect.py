@@ -23,7 +23,7 @@ from adaptiveisp_tpu_torch.detect import boxes as tboxes
 from adaptiveisp_tpu_torch.detect import model as tmodel
 from adaptiveisp_tpu_torch.detect.nms import non_max_suppression
 from adaptiveisp_tpu_torch.detect.spec import YOLOV3_SPEC, YOLOV3_TINY_SPEC
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 
 def flax_yolo_variables(spec, seed):

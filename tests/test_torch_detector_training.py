@@ -59,7 +59,8 @@ from adaptiveisp_tpu_torch.detect import loss
 from adaptiveisp_tpu_torch.detect import train_detector as td
 from adaptiveisp_tpu_torch.detect import train_loop as tl
 from adaptiveisp_tpu_torch.detect.model import DetectionModel
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import (  # noqa: F401
+    cheap_xla, one_torch_thread, ranks_time_limit)
 
 SIZE = 64
 SPEC = {   # tests/test_rl_learning_gate.py's
@@ -632,7 +633,8 @@ def test_hyp_evolution_matches_jax(tmp_path):
     assert len(more["history"]) == 8
 
 
-def test_train_loop_cli_one_epoch(sets, tmp_path, monkeypatch):
+def test_train_loop_cli_one_epoch(sets, tmp_path, monkeypatch,
+                                  ranks_time_limit):
     """``main`` on a toy hyp YAML with --device cpu: the run directory, a
     best.pt that loads as detector weights, --batch-size -1 off the card,
     --tp 2 (two gloo ranks, each holding half of every divisible layer)

@@ -63,7 +63,8 @@ from adaptiveisp_tpu_torch.obs.plots import plot_val_study
 from adaptiveisp_tpu_torch.policy.agent import Agent
 from configs.config_fast_filters import cfg as JFAST
 from test_torch_detect import flax_yolo_variables
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import (  # noqa: F401
+    cheap_xla, one_torch_thread, ranks_time_limit)
 
 MINI_SPEC = {   # tests/test_trainer_validator.py's
     "nc": 8,
@@ -428,7 +429,8 @@ def test_run_hr_validation_matches_jax(stack, tmp_path, monkeypatch):
                                    atol=1e-4, err_msg=k)
 
 
-def test_train_isp_task_val_writes_hr_frames(stack, tmp_path, monkeypatch):
+def test_train_isp_task_val_writes_hr_frames(stack, tmp_path, monkeypatch,
+                                               ranks_time_limit):
     from adaptiveisp_tpu_torch.obs.logging import save_img as real_save_img
 
     frames_t = _capture_frames(monkeypatch, hr_render)

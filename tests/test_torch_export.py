@@ -29,7 +29,7 @@ from adaptiveisp_tpu_torch.detect import export_tf
 from adaptiveisp_tpu_torch.detect.model import decode_predictions
 from adaptiveisp_tpu_torch.eval.rollout import no_pipeline, rollout
 from test_export_cli import MICRO_SPEC
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 SIZE = 64
 NLM_OP = "adaptiveisp_tpu_torch.nlm_gray.default"

@@ -29,7 +29,7 @@ from adaptiveisp_tpu_torch.detect.model import DetectionModel
 from adaptiveisp_tpu_torch.train import fixed_pipeline as tfp
 from adaptiveisp_tpu_torch.train.optim import adam, cosine_decay_schedule
 from test_torch_detect import flax_yolo_variables
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 CFG, JCFG = Config(), JConfig(use_pallas=False)
 SPEC = {   # tests/test_fixed_pipeline.py's

@@ -25,7 +25,7 @@ from test_loss_torch_oracle import (
     STRIDES,
     torch_oracle_loss,
 )
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 
 def _trials():

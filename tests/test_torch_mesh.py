@@ -72,8 +72,9 @@ from adaptiveisp_tpu_torch.train.step import (
 )
 from adaptiveisp_tpu_torch.train.trainer import imgsz_hyp
 from configs.config_fast_filters import cfg as JFAST
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
 from test_torch_trainer import _seeded_inits
+from torch_suite import (  # noqa: F401
+    cheap_xla, one_torch_thread, ranks_time_limit)
 import torch_mesh_ranks
 
 KW = dict(replay_memory_size=8, val_freq=10 ** 9, save_model_freq=2,
@@ -192,7 +193,7 @@ def _cli_args(tmp):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, ranks_time_limit):
     """JAX's mesh trainer (3 iterations), its sharded step twice on the
     fixed batch and its validation over the mesh; the port's two ranks.
     The ranks, the CLI's own two ranks and a failing launch run while JAX

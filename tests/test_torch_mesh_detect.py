@@ -52,7 +52,7 @@ from test_torch_classify import _jax_classifier, _write_folders
 from test_torch_detector_training import LOSS_HYP
 from test_torch_detector_training import SPEC as DET_SPEC
 from test_torch_detector_training import _write_set as det_write_set
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 from test_torch_segment import NM
 from test_torch_segment import SPEC as SEG_SPEC
 from test_torch_segment import _fill

@@ -35,7 +35,7 @@ from adaptiveisp_tpu_torch.detect.model import (
     model_strides,
 )
 from adaptiveisp_tpu_torch.detect.spec import load_spec, named_specs
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 IMG = 64
 ATOL = 1e-4

@@ -13,9 +13,8 @@ interpreter with XLA's cheapest CPU compile options, started when the
 module starts so that it compiles while the module's other tests run.
 """
 
+import functools
 import importlib.util
-import os
-import subprocess
 import sys
 
 import numpy as np
@@ -25,47 +24,11 @@ import torch
 from adaptiveisp_tpu_torch.ops import denoise as td
 from adaptiveisp_tpu_torch.ops.cuda import build
 from adaptiveisp_tpu_torch.ops.cuda.nlm import nlm_gray_fwd
+from torch_suite import (  # noqa: F401
+    cheap_xla, jax_reference, one_torch_thread)
 
 # float32 sums in another order and another exp/sqrt: 2e-5 on [0, 1] pixels
 ATOL = 2e-5
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CHEAP_XLA = ("--xla_backend_optimization_level=0 "
-             "--xla_llvm_disable_expensive_passes=true")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread while a port test module runs.  A tier-1 run
-    has six workers on the host's cores, and torch's default of one
-    OpenMP thread per core in each worker oversubscribes them: the port's
-    test files took 1,780 s summed that way and 870 s on one thread each
-    (6 workers on 8 cores).  The other port test modules import this
-    fixture, which makes it theirs too."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def cheap_xla():
-    """XLA's cheapest CPU compile options while a port test module runs
-    (``jax_disable_most_optimizations``: backend optimisation level 0, no
-    expensive LLVM passes), as :data:`CHEAP_XLA` gives the subprocess
-    references: the JAX references are compile-bound, and the options
-    change their values by float32 rounding only.  The flag is restored
-    and the compiled executables dropped afterwards, so none reaches
-    another module.  Without JAX (the ``cuda`` runs) it does nothing."""
-    if importlib.util.find_spec("jax") is None:
-        yield
-        return
-    import jax
-
-    before = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", before)
-    jax.clear_caches()
 
 
 @pytest.fixture
@@ -115,29 +78,18 @@ def pallas_ref(tmp_path_factory):
     """Starts :func:`_build_reference` in its own interpreter when the
     module starts; yields a function that waits for it and returns
     {"u": U, "w": W}.  Without JAX nothing starts."""
-    proc, path, done = None, None, {}
-    if importlib.util.find_spec("jax") is not None:
-        path = tmp_path_factory.mktemp("nlm_fwd_ref") / "ref.npz"
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(path)], cwd=REPO,
-            env=dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=CHEAP_XLA,
-                     PYTHONPATH=REPO),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-    def result():
-        if proc is None:
-            pytest.skip("needs jax")
-        if not done:
-            log = proc.communicate(timeout=900)[0]
-            assert proc.returncode == 0, log
+    if importlib.util.find_spec("jax") is None:
+        yield lambda: pytest.skip("needs jax")
+        return
+    path = tmp_path_factory.mktemp("nlm_fwd_ref") / "ref.npz"
+    with jax_reference(__file__, path) as wait:
+        @functools.cache
+        def result():
+            wait()
             with np.load(path) as z:
-                done.update(z)
-        return done
+                return dict(z)
 
-    yield result
-    if proc is not None and proc.poll() is None:
-        proc.kill()
-        proc.wait()
+        yield result
 
 
 @pytest.mark.parametrize("shape,hs", [((2, 64, 64), [0.4, 0.08]),

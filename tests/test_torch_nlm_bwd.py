@@ -26,8 +26,6 @@ Tolerances: dL/drgb atol 2e-5 and dL/dhh rtol 2e-4, atol 1e-5, those of
 """
 
 import contextlib
-import os
-import subprocess
 import sys
 
 import numpy as np
@@ -39,13 +37,11 @@ from adaptiveisp_tpu_torch.ops.cuda import build
 from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
 from adaptiveisp_tpu_torch.ops.denoise import canon_gate
 from adaptiveisp_tpu_torch.ops.math import clip_grad_mask, rgb_to_luminance
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import (  # noqa: F401
+    cheap_xla, jax_reference, one_torch_thread)
 
 DRGB_ATOL = 2e-5
 DH_RTOL, DH_ATOL = 2e-4, 1e-5
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CHEAP_XLA = ("--xla_backend_optimization_level=0 "
-             "--xla_llvm_disable_expensive_passes=true")
 
 
 @pytest.fixture
@@ -125,24 +121,14 @@ def refs(tmp_path_factory):
     after the other."""
     pytest.importorskip("jax")
     d = tmp_path_factory.mktemp("nlm_refs")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=CHEAP_XLA,
-               PYTHONPATH=REPO)
-    procs = {k: subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), k, str(d / f"{k}.npz")],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for k in ("pallas", "xla")}
     out = {}
-    try:
-        for k, proc in procs.items():
-            log = proc.communicate(timeout=900)[0]
-            assert proc.returncode == 0, log
+    with contextlib.ExitStack() as stack:
+        waits = {k: stack.enter_context(jax_reference(
+            __file__, k, d / f"{k}.npz")) for k in ("pallas", "xla")}
+        for k, wait in waits.items():
+            wait()
             with np.load(d / f"{k}.npz") as z:
                 out[k] = dict(z)
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
     return out
 
 

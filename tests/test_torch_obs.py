@@ -17,7 +17,7 @@ from adaptiveisp_tpu.obs import trace as jtrace
 from adaptiveisp_tpu_torch.obs import profile as tprofile
 from adaptiveisp_tpu_torch.obs import roofline as troof
 from adaptiveisp_tpu_torch.obs import trace as ttrace
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 
 def _jax_table(scale):

@@ -34,7 +34,7 @@ from adaptiveisp_tpu.ops import bank as jbank
 from adaptiveisp_tpu.ops.ep import make_ep_blend_render as jep
 from adaptiveisp_tpu.ops.pp import make_pipelined_render as jpp
 from adaptiveisp_tpu.train import mesh as jmesh
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 import torch_axes_ranks
 
 SP_NAMES = ["exposure", "improved_wb", "ccm", "gamma", "denoise", "sharpen"]

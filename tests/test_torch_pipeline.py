@@ -23,9 +23,8 @@ gamma's power another way); 2e-5 for the NLM; ``sym=True`` equals
 ``sym=False`` bit for bit (one kernel).
 """
 
+import functools
 import importlib.util
-import os
-import subprocess
 import sys
 
 import numpy as np
@@ -38,14 +37,12 @@ from adaptiveisp_tpu_torch.ops import denoise as td
 from adaptiveisp_tpu_torch.ops.cuda import build
 from adaptiveisp_tpu_torch.ops.cuda import nlm as cnlm
 from adaptiveisp_tpu_torch.ops.cuda import pipeline as cp
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import (  # noqa: F401
+    cheap_xla, full_xla, jax_reference, one_torch_thread)
 
 RTOL, ATOL = 2e-4, 2e-5
 NLM_ATOL = 2e-5
 CFG = Config()
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CHEAP_XLA = ("--xla_backend_optimization_level=0 "
-             "--xla_llvm_disable_expensive_passes=true")
 
 
 @pytest.fixture
@@ -94,29 +91,18 @@ def sym_ref(tmp_path_factory):
     compiles while the module's other tests run; yields a function that
     waits for it and returns {"u": U, "w": W}.  Without JAX nothing
     starts."""
-    proc, path, done = None, None, {}
-    if importlib.util.find_spec("jax") is not None:
-        path = tmp_path_factory.mktemp("nlm_sym_ref") / "ref.npz"
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(path)], cwd=REPO,
-            env=dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=CHEAP_XLA,
-                     PYTHONPATH=REPO),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-    def result():
-        if proc is None:
-            pytest.skip("needs jax")
-        if not done:
-            log = proc.communicate(timeout=900)[0]
-            assert proc.returncode == 0, log
+    if importlib.util.find_spec("jax") is None:
+        yield lambda: pytest.skip("needs jax")
+        return
+    path = tmp_path_factory.mktemp("nlm_sym_ref") / "ref.npz"
+    with jax_reference(__file__, path) as wait:
+        @functools.cache
+        def result():
+            wait()
             with np.load(path) as z:
-                done.update(z)
-        return done
+                return dict(z)
 
-    yield result
-    if proc is not None and proc.poll() is None:
-        proc.kill()
-        proc.wait()
+        yield result
 
 
 def _full(n, *vals):
@@ -233,25 +219,12 @@ def test_fusable_runs_split_at_other_stages_and_kernel_limits():
     assert [len(g) for _, g in plan(long)] == [cp.MAX_STAGES, 1]
 
 
-@pytest.fixture
-def full_xla(jx):
-    """XLA's default optimisation for one test (the module runs at
-    ``cheap_xla``'s level 0): ``jax.grad`` of the stage chain at level 0
-    misses this test's tolerance.  Compiled executables are dropped on
-    each change."""
-    jax = jx[0]
-    jax.config.update("jax_disable_most_optimizations", False)
-    jax.clear_caches()
-    yield
-    jax.config.update("jax_disable_most_optimizations", True)
-    jax.clear_caches()
-
-
 def test_fused_run_wiring_matches_jax_grad(jx, full_xla, monkeypatch):
     """``fused_run`` with the plain chain standing in for K4: the gradients
     with respect to the image and every stage's per-image parameters
     against ``jax.grad`` of JAX's stage chain (``render_fixed`` in turn),
-    for a seeded cotangent."""
+    for a seeded cotangent.  At XLA's default level (``full_xla``): the
+    chain's gradient at level 0 misses this test's tolerance."""
     jax, jcfg, jbank, _, _ = jx
     jnp = jax.numpy
     rng = np.random.RandomState(7)

@@ -27,7 +27,7 @@ from adaptiveisp_tpu_torch.data.replay import ReplayMemory
 from adaptiveisp_tpu_torch.detect.nms import non_max_suppression
 from test_torch_data import _feeds_equal, _same_record, _toy_set
 from test_torch_detect import _decoded
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 # (color, auto, scale_fill, scaleup, stride) after (im, new_shape)
 LETTERBOX_ARGS = [((0.5, 0.25, 1.0), False, False, True, 32),

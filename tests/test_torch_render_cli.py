@@ -20,7 +20,8 @@ from PIL import Image
 
 from adaptiveisp_tpu_torch import render_isp
 from adaptiveisp_tpu_torch.config import Config
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import (  # noqa: F401
+    cheap_xla, one_torch_thread, ranks_time_limit)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PNG_ATOL = 1.0 / 255 + 2e-5   # the PNG floor plus the chain's tolerance
@@ -116,7 +117,7 @@ def test_render_cli_matches_jax_render(tmp_path):
             assert np.abs(want - g).max() <= PNG_ATOL, label
 
 
-def test_render_cli_pipe_equals_single_process(tmp_path):
+def test_render_cli_pipe_equals_single_process(tmp_path, ranks_time_limit):
     """``render_isp --pipe 2 --window 4 --device cpu`` (two gloo ranks,
     a chain with denoise, 6 frames in microbatches of 2) writes the PNGs
     of ``--pipe 0``; a stage count that differs from --pipe is refused."""

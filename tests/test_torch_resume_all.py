@@ -23,7 +23,7 @@ import yaml
 
 from adaptiveisp_tpu_torch import resume_all
 from test_torch_detector_training import _write_set
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

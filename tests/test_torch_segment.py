@@ -54,7 +54,7 @@ from adaptiveisp_tpu_torch.detect.model import (
 )
 from adaptiveisp_tpu_torch.detect.nms import non_max_suppression
 from adaptiveisp_tpu_torch.obs import plots
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 SIZE, NM, NPR = 64, 4, 16
 DET_SPEC = {

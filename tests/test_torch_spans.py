@@ -28,7 +28,7 @@ from adaptiveisp_tpu_torch.obs import trace as ttrace
 from adaptiveisp_tpu_torch.ops.bank import short_names
 from adaptiveisp_tpu_torch.train.trainer import Trainer
 from benchmark import harness
-from test_torch_nlm import one_torch_thread  # noqa: F401
+from torch_suite import one_torch_thread  # noqa: F401
 
 MINI_SPEC = {   # tests/test_torch_trainer.py's
     "nc": 8,

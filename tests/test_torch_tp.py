@@ -38,7 +38,7 @@ from adaptiveisp_tpu_torch.convert import yolo_from_flax
 from adaptiveisp_tpu_torch.data.detector_dataset import DetectorDataset
 from adaptiveisp_tpu_torch.detect.model import DetectionModel
 from adaptiveisp_tpu_torch.train import mesh as mesh_lib
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 from test_torch_segment import _fill
 import torch_axes_ranks
 

@@ -52,7 +52,7 @@ from adaptiveisp_tpu_torch.train.step import (
     make_train_step,
 )
 from adaptiveisp_tpu_torch.train.trainer import imgsz_hyp
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 # detect_loss_weight 0.3 keeps the random detector's loss (about 2.8)
 # inside the reward's clip to [0, 1], so its gradient reaches the render

@@ -14,7 +14,7 @@ import torch
 
 from adaptiveisp_tpu.serve import triton as jtriton
 from adaptiveisp_tpu_torch.serve import triton as ttriton
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 from test_triton_client import _Handler
 
 

@@ -19,7 +19,7 @@ from adaptiveisp_tpu.raw import bayer as jbayer
 from adaptiveisp_tpu.raw import unprocess as jun
 from adaptiveisp_tpu_torch.raw import bayer
 from adaptiveisp_tpu_torch.raw import unprocess as un
-from test_torch_nlm import cheap_xla, one_torch_thread  # noqa: F401
+from torch_suite import cheap_xla, one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 
